@@ -39,6 +39,12 @@ def load_rec10(path, w, h, frame=0):
     return y, u, v
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips inside the test where "
+        "torch finds none")
+
+
 @pytest.fixture
 def data_dir():
     return DATA

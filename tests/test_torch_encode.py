@@ -1,0 +1,98 @@
+"""End to end on the CPU: the torch port's streams equal the JAX engine's
+byte for byte (LD-P and RA GOP16), decode bit-exactly, and every coded
+frame was analysed by the port."""
+import numpy as np
+import pytest
+import torch
+
+from test_inter_jax import synth
+from tools.gen_test_content import gen_frame
+from xeve_tpu import api as jax_api
+from xeve_tpu.dec.decoder import BaselineIntraDecoder
+from xeve_tpu.params import EncoderParams
+from xeve_tpu_torch import api as torch_api
+
+
+def _ra_frames(n, w=128, h=64):
+    out = []
+    for t in range(n):
+        y, u, v = gen_frame(w, h, t)
+        out.append((y.astype(np.int16) << 2, u.astype(np.int16) << 2,
+                    v.astype(np.int16) << 2))
+    return out
+
+
+def _assert_decodes(bs, recs):
+    dec = BaselineIntraDecoder().decode(bs)
+    assert len(dec) == len(recs)
+    for f in dec:
+        assert np.array_equal(f.y, recs[f.poc][0]), f"poc {f.poc}"
+        assert np.array_equal(f.u, recs[f.poc][1]), f"poc {f.poc}"
+
+
+def test_ldp_stream_equals_jax_engine():
+    frames = synth(4, 128, 64)
+    p = dict(w=128, h=64, qp=30, keyint=0)
+    ref = jax_api.Encoder(EncoderParams(**p), analysis="jax")
+    enc = torch_api.Encoder(EncoderParams(**p), device="cpu")
+    bs_ref = [bs for bs, _rec, _poc in ref.encode_stream(iter(frames))]
+    out = list(enc.encode_stream(iter(frames)))
+    assert [bs for bs, _rec, _poc in out] == bs_ref
+    assert enc.analysis_calls == len(frames)
+    _assert_decodes(b"".join(bs for bs, _r, _p in out),
+                    {poc: rec for _bs, rec, poc in out})
+
+
+def test_ra_stream_equals_jax_engine():
+    frames = _ra_frames(17)
+    p = dict(w=128, h=64, qp=32, keyint=0, bframes=15)
+    ref = jax_api.GopEncoder(EncoderParams(**p), analysis="jax")
+    enc = torch_api.GopEncoder(EncoderParams(**p), device="cpu")
+    bs_ref = [bs for bs, _rec, _poc in ref.encode_stream(iter(frames))]
+    out = list(enc.encode_stream(iter(frames)))
+    assert len(out) == 17
+    assert [bs for bs, _rec, _poc in out] == bs_ref
+    assert enc.analysis_calls == 17
+    _assert_decodes(b"".join(bs for bs, _r, _p in out),
+                    {poc: rec for _bs, rec, poc in out})
+
+
+def test_intra_frames_use_port_analysis(monkeypatch):
+    """I slices never fall through to the numpy oracle (api.py:557)."""
+    from xeve_tpu import api as base
+
+    def refuse(*a, **k):
+        raise AssertionError("numpy intra analysis reached")
+
+    monkeypatch.setattr(base, "analyze_frame", refuse)
+    enc = torch_api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=1),
+                            device="cpu")
+    for f in _ra_frames(2, 64, 64):
+        enc.encode_frame(*f)
+    assert enc.analysis_calls == 2
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(profile=1), NotImplementedError),
+    (dict(rc_type="abr", bitrate_kbps=500.0), NotImplementedError),
+    (dict(profile=1, tool_eipd=0, tool_dra=1), NotImplementedError),
+])
+def test_unported_configurations_raise(kw, exc):
+    with pytest.raises(exc):
+        torch_api.Encoder(EncoderParams(w=64, h=64, **kw), device="cpu")
+
+
+def test_unported_entry_points_raise():
+    enc = torch_api.GopEncoder(EncoderParams(w=64, h=64, bframes=15),
+                               device="cpu")
+    frames = _ra_frames(2, 64, 64)
+    with pytest.raises(NotImplementedError):
+        enc.encode_frames(frames)
+    with pytest.raises(NotImplementedError):
+        list(enc.encode_stream_meshed(iter(frames), mesh=None))
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_api.Encoder(EncoderParams(w=64, h=64))
