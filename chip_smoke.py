@@ -15,9 +15,24 @@ Phases, one line each; any failure raises and exits non-zero:
   5. LD-P encode, 3 frames at 1920x1088, QP 32, preset medium;
   6. RA GOP16 encode, 17 frames at 1920x1088;
   7. round trip: LD-P and RA streams at 128x64 coded on the card decode
-     bit-exactly through the Python conformance decoder.
-The kernel launch count is reset before phase 5 and read after phase 6.
-The last two lines are the kernel record and {"ok": true, "device": ...}.
+     bit-exactly through the Python conformance decoder;
+then the fused device analyzer (analysis="device", bench.py's engine),
+which runs no hand-written kernel:
+  8. fused analysis at 1920x1088 on the card against the same call on the
+     CPU for the I, P, P+ref0b, B (with and without bi refinement) and
+     B+ref0b+ref1b signatures: MV sections identical, modes and splits
+     agree on >= 0.99 of the blocks of each level, RC tail to 1e-5;
+  9. dispatch+collect times of one I, P and B frame, and torch.profiler's
+     device busy time and device operation count of one B dispatch;
+ 10-12. device-engine encodes at 1920x1088, QP 32, preset medium: AI (4
+     frames, frame-parallel C pass), LD-P (8 frames, dispatch ahead 3)
+     and RA GOP16 (17 frames, pipelined sub-GOP, frame-parallel C pass);
+     each asserts one dispatch per frame and no device failure;
+ 13. round trip: device-engine LD-P and RA streams at 128x64 coded on the
+     card decode bit-exactly.
+The ME kernel's launch count is reset before phase 5 and read after phase
+6 (the device engine does not launch it).  The last two lines are the
+kernel record and {"ok": true, "device": ...}.
 """
 import json
 import os
@@ -212,6 +227,260 @@ def phase_round_trip(Encoder, GopEncoder, EncoderParams):
           "bit-exactly", flush=True)
 
 
+def _sections(vec, h, w):
+    """(modes/splits per level, MV sections, RC value) of a packed
+    device-analyzer vector (min_log2 2, max_log2 6)."""
+    levels, off = {}, 0
+    for lg in range(2, 7):
+        n = (h >> lg) * (w >> lg)
+        levels[lg] = (vec[off:off + n], vec[off + n:off + 2 * n])
+        off += 2 * n
+    rc = float((int(vec[-2]) << 15) | int(vec[-1])) * 65536.0
+    return levels, vec[off:-2], rc
+
+
+def phase_fused(dan):
+    """Card against CPU, the whole fused graph per dispatch signature."""
+    import numpy as np
+    import torch
+    from xeve_tpu.constants import chroma_qp_dynamic
+    from xeve_tpu_torch.enc.analysis_torch import level_params
+    fr = _frames(W, H, 5)
+    qp_y, qp_c = QP + 12, chroma_qp_dynamic(QP) + 12
+    prms = np.stack([level_params(QP, qp_y, qp_c, qp_c, 10, lg)
+                     for lg in range(2, 7)])
+    prm3 = np.array([0.57 * 2.0 ** ((QP - 12) / 3.0),
+                     2.0 ** ((qp_y - qp_c) / 3.0),
+                     2.0 ** ((qp_y - qp_c) / 3.0)], np.float32)
+    sigs = {"I": ((), False), "P": ((0,), False),
+            "P+ref0b": ((0, 3), False), "B": ((0, None, 2), True),
+            "B-norefine": ((0, None, 2), False),
+            "B+ref0b+ref1b": ((0, 3, 2, 4), True)}
+    worst, worst_rc = 1.0, 0.0
+    t0 = time.perf_counter()
+    for name, (refs, refine) in sigs.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            def to(a):
+                return torch.as_tensor(a, device=dev)
+            r = [None if i is None else tuple(map(to, fr[i])) for i in refs]
+            r += [None] * (4 - len(r))
+            vec = dan._fused_impl(*map(to, fr[1]), *r, to(prms), to(prm3),
+                                  bd=10, R=16, pad=dan.PAD, min_log2=2,
+                                  max_log2=6, refine=refine)
+            out[dev] = _sections(vec.cpu().numpy(), H, W)
+        (lv_g, mv_g, rc_g), (lv_c, mv_c, rc_c) = out["cuda"], out["cpu"]
+        assert np.array_equal(mv_g, mv_c), f"{name}: MV sections differ"
+        for lg in lv_c:
+            m = float((lv_g[lg][0] == lv_c[lg][0]).mean())
+            s = float((lv_g[lg][1] == lv_c[lg][1]).mean())
+            worst = min(worst, m, s)
+            assert m >= AGREE_MIN and s >= AGREE_MIN, \
+                f"{name} level {lg}: mode {m:.5f} split {s:.5f}"
+        rel = abs(rc_g - rc_c) / max(abs(rc_c), 1.0)
+        worst_rc = max(worst_rc, rel)
+        assert rel <= 1e-5, f"{name}: RC tail {rc_g} vs {rc_c}"
+    print(f"phase 8 fused analysis: card vs CPU at {W}x{H}, signatures "
+          f"{', '.join(sigs)}: MV sections identical, lowest mode/split "
+          f"agreement {worst:.5f} (>= {AGREE_MIN}), RC tail rel diff "
+          f"{worst_rc:.3g} (<= 1e-5), {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_dispatch(dan):
+    """Dispatch+collect per frame kind, and one profiled B dispatch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from xeve_tpu.constants import chroma_qp_dynamic
+    dev = dan.DeviceAnalyzer(W, H, 10, search_range=16, device="cuda")
+    for t, f in enumerate(_frames(W, H, 3)):
+        dev.put_frame(t, *f)
+    qps = (QP, QP + 12, chroma_qp_dynamic(QP) + 12,
+           chroma_qp_dynamic(QP) + 12)
+    kinds = {"I": {}, "P": dict(ref_poc=0),
+             "B": dict(ref_poc=0, ref1_poc=2)}
+    times = {}
+    for name, kw in kinds.items():
+        dev.collect(dev.dispatch(1, *qps, **kw))          # warm
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev.collect(dev.dispatch(1, *qps, **kw))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        times[name] = sorted(ts)[2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dev.collect(dev.dispatch(1, *qps, **kinds["B"]))
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, None
+    for a, b in spans:                      # union of device intervals, us
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    ops = sorted(((e.key, e.self_device_time_total)
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])[:4]
+    assert evs and dev.failures == 0, "no device time in the B dispatch"
+    print(f"phase 9 dispatch: dispatch+collect at {W}x{H} on the card: I "
+          f"{times['I']:.1f} ms, P {times['P']:.1f} ms, B {times['B']:.1f} "
+          f"ms (median of 5, host clock, synchronised); one profiled B: "
+          f"wall {wall:.1f} ms, device busy {busy / 1e3:.2f} ms over "
+          f"{len(evs)} device operations (idle share "
+          f"{1.0 - busy / 1e3 / wall:.3f}); hottest kernels: "
+          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top)
+          + "; hottest ops (self device time): "
+          + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in ops)
+          + "; stages of one B (CUDA events, launch gaps included): "
+          + ", ".join(f"{n} {t:.2f} ms" for n, t in _b_stages(dan, qps)),
+          flush=True)
+
+
+def _b_stages(dan, qps):
+    """CUDA-event ms of each stage of one B dispatch at 1920x1088, every
+    stage run alone on its inputs; largest first."""
+    import numpy as np
+    import torch
+    from xeve_tpu_torch.enc import winmc_torch as wm
+    from xeve_tpu_torch.enc.analysis_inter_torch import _cur_blocks
+    from xeve_tpu_torch.enc.analysis_torch import _level_cost_impl, \
+        level_params
+
+    def to(a):
+        return torch.as_tensor(a, device="cuda")
+
+    f0, f1, f2 = _frames(W, H, 3)
+    y16, u16, v16 = map(to, f1)
+    ref0, ref1 = tuple(map(to, f0)), tuple(map(to, f2))
+    y, u, v = y16.int(), u16.int(), v16.int()
+    yf, uf, vf = y16.float(), u16.float(), v16.float()
+    prms = to(np.stack([level_params(*qps, 10, lg) for lg in range(2, 7)]))
+    lam = 0.57 * 2.0 ** ((QP - 12) / 3.0)
+    w_c = 2.0 ** ((qps[1] - qps[2]) / 3.0)
+    prm3 = to(np.array([lam, w_c, w_c], np.float32))
+    nby, nbx = H // 16, W // 16
+    mv16c, _vw, sq16, pred16, ry, m = dan._ref_luma(y, ref0[0], PAD, 10, H,
+                                                    W)
+    vw1 = dan._ref_luma(y, ref1[0], PAD, 10, H, W, want_pred=False)[1]
+    P16 = wm.build_patches(ry, 16, 5, 32, nby, nbx, PAD)
+    W32 = wm.onehot_extract(P16, m[..., 1] + 25, m[..., 0] + 25, 32, 32)
+    vw = wm.phase_windows(W32, 10)
+    cur16 = _cur_blocks(y, 16)
+    q = wm._qpel_search(cur16, vw, 8, 3, 7)[1]
+    leaf = {lg: _level_cost_impl(yf, uf, vf, prms[i], 10, lg)[1]
+            for i, lg in enumerate(range(2, 7))}
+    stages = {
+        "intra levels 2-6": lambda: [
+            _level_cost_impl(yf, uf, vf, prms[i], 10, lg)
+            for i, lg in enumerate(range(2, 7))],
+        "ref0 _ref_luma": lambda: dan._ref_luma(y, ref0[0], PAD, 10, H, W),
+        "ref1 _ref_luma (no pred)": lambda: dan._ref_luma(
+            y, ref1[0], PAD, 10, H, W, want_pred=False),
+        "coarse_me": lambda: wm.coarse_me(y.float(), ry.float(), PAD, nby,
+                                          nbx),
+        "patches+gather 32x32": lambda: wm.onehot_extract(
+            wm.build_patches(ry, 16, 5, 32, nby, nbx, PAD),
+            m[..., 1] + 25, m[..., 0] + 25, 32, 32),
+        "phase_windows": lambda: wm.phase_windows(W32, 10),
+        "qpel search (289 cand, chunks of 17)": lambda: wm._qpel_search(
+            cur16, vw, 8, 3, 7),
+        "winner MC": lambda: wm.perblock_mc(W32, q[..., 0], q[..., 1], 16,
+                                            10, table=wm._T16, q_lo=-8),
+        "_inter_costs_v2 (lg 2-6)": lambda: dan._inter_costs_v2(
+            y, u, v, ref0, mv16c, sq16, ry, prm3, PAD, 2, 6, H, W, 10),
+        "re-search lg 5": lambda: dan._research_level(y, ry, mv16c, 5, 10,
+                                                      PAD, H, W),
+        "re-search lg 6": lambda: dan._research_level(y, ry, mv16c, 6, 10,
+                                                      PAD, H, W),
+        "bi target search": lambda: wm.eval_qpel_target(
+            2 * cur16 - pred16, vw1),
+        "partition DP": lambda: dan._partition_dp_dev(leaf, prm3[0], 2, 6),
+    }
+    out = [(n,_cuda_ms(fn, 3)) for n, fn in stages.items()]
+    return sorted(out, key=lambda kv: -kv[1])
+
+
+def _c_pass_share(spans, t0, t1):
+    """(union of the C-pass intervals, their sum) over the wall t1 - t0."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / (t1 - t0), sum(b - a for a, b in spans) / (t1 - t0)
+
+
+def phase_device_encode(label, cls, params, frames, **kw):
+    import numpy as np
+    enc = cls(params, analysis="device", device="cuda")
+    # time every P/B-slice C pass (frame-parallel ones run on worker
+    # threads; the AI frame-parallel pass does not go through _code_slice)
+    spans = []
+    code_slice = enc._code_slice
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        r = code_slice(*a, **k)
+        spans.append((t, time.perf_counter()))
+        return r
+
+    enc._code_slice = timed
+    t0 = time.perf_counter()
+    out = list(enc.encode_stream(iter(frames), **kw))
+    t1 = time.perf_counter()
+    dt = t1 - t0
+    dev = enc._device()
+    n = len(out)
+    assert n == len(frames), f"{label}: {n} outputs for {len(frames)} frames"
+    assert dev.dispatches == n, f"{label}: {dev.dispatches} dispatches"
+    assert dev.failures == 0, f"{label}: {dev.failures} device failures"
+    nbytes = sum(len(bs) for bs, _rec, _poc in out)
+    ps = [_psnr_y(frames[poc][0], rec[0]) for _bs, rec, poc in out]
+    assert all(np.isfinite(p) and p > 30.0 for p in ps), f"{label}: {ps}"
+    print(f"{label}: {n} frames {params.w}x{params.h} in {dt:.3f} s = "
+          f"{n / dt:.4f} fps, {nbytes * 8 * 30.0 / n / 1000.0:.1f} kbps at "
+          f"30 fps, PSNR-Y {float(np.mean(ps)):.3f} dB, dispatches "
+          f"{dev.dispatches}, failures 0, XEVE_TPU_FRAME_WORKERS "
+          f"{enc._frame_workers()}, C pass built in phase 2"
+          + ("; P/B C passes: {:.3f} of the wall busy, mean concurrency "
+             "{:.3f}".format(*_c_pass_share(spans, t0, t1)) if spans
+             else ""), flush=True)
+
+
+def phase_device_round_trip(Encoder, GopEncoder, EncoderParams):
+    import numpy as np
+    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    frames = _frames(128, 64, 18)
+    for label, cls, kw, fr in (
+            ("LD-P", Encoder, dict(keyint=0), frames[:5]),
+            ("RA", GopEncoder, dict(keyint=0, bframes=15), frames)):
+        enc = cls(EncoderParams(w=128, h=64, qp=QP, **kw),
+                  analysis="device", device="cuda")
+        out = list(enc.encode_stream(iter(fr)))
+        assert enc._device().failures == 0, f"{label}: device failures"
+        recs = {poc: rec for _bs, rec, poc in out}
+        dec = BaselineIntraDecoder().decode(b"".join(b for b, _r, _p in out))
+        assert len(dec) == len(fr), f"{label}: decoded {len(dec)} frames"
+        for f in dec:
+            for a, b in zip((f.y, f.u, f.v), recs[f.poc]):
+                assert np.array_equal(a, b), f"{label} poc {f.poc} differs"
+    print("phase 13 round trip: device-engine LD-P (5) and RA (18) at "
+          "128x64 decode bit-exactly", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -223,6 +492,7 @@ def main():
     from xeve_tpu.native.build import get_lib as get_native_lib
     from xeve_tpu.params import EncoderParams
     from xeve_tpu_torch.api import Encoder, GopEncoder
+    from xeve_tpu_torch.enc import device_analyzer as dan
     from xeve_tpu_torch.enc.me_torch import integer_me_plain
     from xeve_tpu_torch.ops import _build, me_cuda
 
@@ -258,6 +528,21 @@ def main():
     launches = me_cuda.LAUNCHES
 
     phase_round_trip(Encoder, GopEncoder, EncoderParams)
+
+    phase_fused(dan)
+    phase_dispatch(dan)
+    me_cuda.LAUNCHES = 0
+    phase_device_encode("phase 10 AI", Encoder,
+                        EncoderParams(w=W, h=H, qp=QP, keyint=1,
+                                      preset="medium"), frames[:4])
+    phase_device_encode("phase 11 LD-P", Encoder,
+                        EncoderParams(w=W, h=H, qp=QP, keyint=0,
+                                      preset="medium"), frames[:8], ahead=3)
+    phase_device_encode("phase 12 RA", GopEncoder,
+                        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
+                                      preset="medium"), frames)
+    assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
+    phase_device_round_trip(Encoder, GopEncoder, EncoderParams)
     assert "jax" not in sys.modules, "the port imported jax"
 
     print(json.dumps({"kernels": [{

@@ -1,5 +1,6 @@
 """The torch port runs with JAX unimportable: a fresh interpreter with
-sys.modules["jax"] = None encodes two LD-P frames on the CPU."""
+sys.modules["jax"] = None encodes two LD-P frames on the CPU with each
+analysis engine ("jax" and the fused "device" analyzer)."""
 import os
 import subprocess
 import sys
@@ -24,6 +25,15 @@ for t in range(2):
     assert len(bs) > 0 and rec[0].shape == (64, 64)
     n += len(bs)
 assert enc.analysis_calls == 2
+dev_enc = api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=0),
+                      analysis="device", device="cpu")
+frames = [(np.roll(base, (t, 2 * t), axis=(0, 1)).astype(np.int16),
+           np.full((32, 32), 512, np.int16),
+           np.full((32, 32), 512, np.int16)) for t in range(2)]
+for bs, rec, poc in dev_enc.encode_stream(iter(frames)):
+    assert len(bs) > 0 and rec[0].shape == (64, 64)
+    n += len(bs)
+assert dev_enc._device().dispatches == 2
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("bytes", n)
