@@ -6,9 +6,12 @@
 Phases, one line each; any failure raises and exits non-zero:
   1. card: name and power limit (nvidia-smi); fails without CUDA;
   2. build: compile the ME kernel (csrc/me_full_search.cu) with nvcc and
-     the host C coding pass with gcc, so the encode phases time encoding;
+     the port's copy of the host C coding pass (native/xt_core.c) with
+     gcc, both into build/xeve_tpu_torch/, so the encode phases time
+     encoding;
   3. kernel: full-search ME at 1920x1088 10-bit, R=16, against its plain
      PyTorch version (random pair, shifted pair): MVs and costs identical;
+     its time beside its bound at the SM clock read just after it;
   4. analysis: intra and inter analysis at 1920x1088 on the card against
      the same calls on the CPU (MV maps identical; modes and splits agree
      on >= 0.99 of the blocks of each level);
@@ -31,8 +34,9 @@ which runs no hand-written kernel:
  13. round trip: device-engine LD-P and RA streams at 128x64 coded on the
      card decode bit-exactly.
 The ME kernel's launch count is reset before phase 5 and read after phase
-6 (the device engine does not launch it).  The last two lines are the
-kernel record and {"ok": true, "device": ...}.
+6 (the device engine does not launch it).  Every phase runs on the port's
+own modules: neither jax nor the JAX package xeve_tpu is imported.  The
+last two lines are the kernel record and {"ok": true, "device": ...}.
 """
 import json
 import os
@@ -80,7 +84,8 @@ def _psnr_y(a, b):
 def phase_kernel(me_cuda, integer_me_plain):
     import numpy as np
     import torch
-    from xeve_tpu.ops import mc_np
+    from xeve_tpu_torch.ops import me_bench
+    from xeve_tpu_torch.ops import mc_np
     rng = np.random.default_rng(2024)
     ref_rand = rng.integers(0, 1024, (H, W)).astype(np.int32)
     cur_rand = rng.integers(0, 1024, (H, W)).astype(np.int32)
@@ -106,20 +111,38 @@ def phase_kernel(me_cuda, integer_me_plain):
     share = float((inner == torch.tensor([-11, 7], device="cuda"))
                   .all(-1).float().mean())
     assert share > 0.9, f"shifted pair: true MV found on {share:.3f}"
-    # timed on the shifted pair, the last one staged
+    # timed on the shifted pair, the last one staged; the SM clock is read
+    # right after the kernel's timing
     ms = _cuda_ms(lambda: me_cuda.integer_me(c, r, PAD, 16), 20)
+    clk, clk_max = me_bench.sm_clocks()
+    load_clk, watts, _n = me_bench.sm_clock_under_load(
+        lambda: me_cuda.integer_me(c, r, PAD, 16), ms)
     plain_ms = _cuda_ms(lambda: integer_me_plain(c, r, 16, PAD), 3)
+    nby, nbx = H // 16, W // 16
+    bound, bound_max, bound_load = (me_bench.bound_ms(nby, nbx, 16, f)
+                                    for f in (clk, clk_max, load_clk))
+    # bytes bound: cur and the padded ref read once, mv and cost written
+    bytes_ms = (H * W + (H + 2 * PAD) * (W + 2 * PAD) + 3 * nby * nbx) \
+        * 4 / 3.35e12 * 1e3
+    assert bytes_ms < bound_max
     print(f"phase 3 kernel: {W}x{H} R=16 random+shifted pairs identical; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events)",
-          flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events); "
+          f"SM clock {clk:.0f} MHz (max {clk_max:.0f}): bound {bound:.4f} ms "
+          f"at that clock, {bound_max:.4f} ms at the max (INT32 "
+          f"abs-diff-adds; bytes alone {bytes_ms:.4f} ms), "
+          f"{bound_max / ms:.3f} of the bound; back to back for 1 s: SM "
+          f"clock {load_clk:.0f} MHz, {watts:.1f} W, bound {bound_load:.4f} "
+          f"ms at that clock", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_max, "bound_by": "operations",
+            "library_ms": None, "sm_clock_mhz": clk}
 
 
 def phase_analysis():
     import numpy as np
     import torch
-    from xeve_tpu.constants import chroma_qp_dynamic
-    from xeve_tpu.ops import mc_np
+    from xeve_tpu_torch.constants import chroma_qp_dynamic
+    from xeve_tpu_torch.ops import mc_np
     from xeve_tpu_torch.enc.analysis_torch import analyze_frame_torch
     from xeve_tpu_torch.enc.analysis_inter_torch import \
         analyze_frame_inter_torch
@@ -210,7 +233,7 @@ def phase_encode(label, cls, params, frames, me_cuda):
 
 def phase_round_trip(Encoder, GopEncoder, EncoderParams):
     import numpy as np
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
     frames = _frames(128, 64, 17)
     for label, cls, kw, fr in (
             ("LD-P", Encoder, dict(keyint=0), frames[:4]),
@@ -243,7 +266,7 @@ def phase_fused(dan):
     """Card against CPU, the whole fused graph per dispatch signature."""
     import numpy as np
     import torch
-    from xeve_tpu.constants import chroma_qp_dynamic
+    from xeve_tpu_torch.constants import chroma_qp_dynamic
     from xeve_tpu_torch.enc.analysis_torch import level_params
     fr = _frames(W, H, 5)
     qp_y, qp_c = QP + 12, chroma_qp_dynamic(QP) + 12
@@ -292,7 +315,7 @@ def phase_dispatch(dan):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from xeve_tpu.constants import chroma_qp_dynamic
+    from xeve_tpu_torch.constants import chroma_qp_dynamic
     dev = dan.DeviceAnalyzer(W, H, 10, search_range=16, device="cuda")
     for t, f in enumerate(_frames(W, H, 3)):
         dev.put_frame(t, *f)
@@ -462,7 +485,7 @@ def phase_device_encode(label, cls, params, frames, **kw):
 
 def phase_device_round_trip(Encoder, GopEncoder, EncoderParams):
     import numpy as np
-    from xeve_tpu.dec.decoder import BaselineIntraDecoder
+    from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
     frames = _frames(128, 64, 18)
     for label, cls, kw, fr in (
             ("LD-P", Encoder, dict(keyint=0), frames[:5]),
@@ -489,8 +512,8 @@ def main():
     # tools/ is a directory, not a package: a site package named `tools`
     # would shadow `tools.gen_test_content`
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
-    from xeve_tpu.native.build import get_lib as get_native_lib
-    from xeve_tpu.params import EncoderParams
+    from xeve_tpu_torch.native.build import get_lib as get_native_lib
+    from xeve_tpu_torch.params import EncoderParams
     from xeve_tpu_torch.api import Encoder, GopEncoder
     from xeve_tpu_torch.enc import device_analyzer as dan
     from xeve_tpu_torch.enc.me_torch import integer_me_plain
@@ -543,7 +566,8 @@ def main():
                                       preset="medium"), frames)
     assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
     phase_device_round_trip(Encoder, GopEncoder, EncoderParams)
-    assert "jax" not in sys.modules, "the port imported jax"
+    assert not any(m.split(".")[0] in ("jax", "xeve_tpu")
+                   for m in sys.modules), "the port imported jax or xeve_tpu"
 
     print(json.dumps({"kernels": [{
         "name": "me_full_search", "route": "cuda",

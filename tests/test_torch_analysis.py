@@ -19,6 +19,11 @@ from xeve_tpu.enc.analysis_np import analyze_frame
 from xeve_tpu_torch import tables
 from xeve_tpu_torch.enc import analysis_torch
 
+# One intra-op thread: the test workers share the CPU, and torch's
+# OpenMP threads would spin against each other on the port's many
+# small ops (a 3 s encode took minutes under a full parallel run).
+torch.set_num_threads(1)
+
 FIXTURES = {"s96": ("s96.yuv", 96, 80), "cif": ("cif.yuv", 352, 288)}
 
 

@@ -7,6 +7,7 @@ the mode/split sections and every MV section bit for bit, and the RC tail
 the backends) to relative 1e-5.  The host-side copies must equal their
 originals, and failure recovery and prewarm must work as in
 test_failover.py and api.prewarm."""
+import dataclasses
 import functools
 import os
 
@@ -17,12 +18,17 @@ import torch
 
 from conftest import DATA, load_yuv8
 from tools.gen_test_content import gen_frame
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
 from xeve_tpu.enc import device_analyzer as dj
 from xeve_tpu.enc.analysis_jax import level_params
-from xeve_tpu.params import EncoderParams
 from xeve_tpu_torch import api as torch_api
+from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.enc import device_analyzer as dt
+from xeve_tpu_torch.params import EncoderParams
+
+# One intra-op thread: the test workers share the CPU, and torch's
+# OpenMP threads would spin against each other on the port's many
+# small ops (a 3 s encode took minutes under a full parallel run).
+torch.set_num_threads(1)
 
 PAD = dt.PAD
 QP = 32
@@ -112,7 +118,10 @@ def test_packed_vector_equals_fused_jit(fixture, sig):
 
 
 def _same_result(a, b):
-    assert type(a) is type(b)
+    # the port's result classes are its own copies: same name and fields
+    assert type(a).__name__ == type(b).__name__
+    assert [f.name for f in dataclasses.fields(a)] == \
+        [f.name for f in dataclasses.fields(b)]
     for name in ("mode", "split", "mv", "mv1", "mv0b", "mv1b", "mvbi"):
         x, y = getattr(a, name, None), getattr(b, name, None)
         assert (x is None) == (y is None), name

@@ -8,10 +8,11 @@ import pytest
 
 from tools.gen_test_content import gen_frame
 from xeve_tpu import api as jax_api
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
-from xeve_tpu.params import EncoderParams
+from xeve_tpu.params import EncoderParams as JaxParams
 from xeve_tpu_torch import api as torch_api
+from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.enc import device_analyzer as dt
+from xeve_tpu_torch.params import EncoderParams
 
 W, H = 128, 64
 
@@ -26,8 +27,11 @@ def _frames(n, w=W, h=H):
 
 
 def _encode(mod, cls, p, frames, **kw):
-    enc = getattr(mod, cls)(EncoderParams(**p), analysis="device",
-                            **({} if mod is jax_api else {"device": "cpu"}))
+    if mod is jax_api:
+        enc = getattr(mod, cls)(JaxParams(**p), analysis="device")
+    else:
+        enc = getattr(mod, cls)(EncoderParams(**p), analysis="device",
+                                device="cpu")
     out = list(enc.encode_stream(iter(frames), **kw))
     return enc, out
 

@@ -8,9 +8,17 @@ import torch
 from test_inter_jax import synth
 from tools.gen_test_content import gen_frame
 from xeve_tpu import api as jax_api
-from xeve_tpu.dec.decoder import BaselineIntraDecoder
-from xeve_tpu.params import EncoderParams
+from xeve_tpu.params import EncoderParams as JaxParams
 from xeve_tpu_torch import api as torch_api
+from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
+from xeve_tpu_torch.enc import analysis_np as port_analysis_np
+from xeve_tpu_torch.enc import device_analyzer as port_device_analyzer
+from xeve_tpu_torch.params import EncoderParams
+
+# One intra-op thread: the test workers share the CPU, and torch's
+# OpenMP threads would spin against each other on the port's many
+# small ops (a 3 s encode took minutes under a full parallel run).
+torch.set_num_threads(1)
 
 
 def _ra_frames(n, w=128, h=64):
@@ -33,7 +41,7 @@ def _assert_decodes(bs, recs):
 def test_ldp_stream_equals_jax_engine():
     frames = synth(4, 128, 64)
     p = dict(w=128, h=64, qp=30, keyint=0)
-    ref = jax_api.Encoder(EncoderParams(**p), analysis="jax")
+    ref = jax_api.Encoder(JaxParams(**p), analysis="jax")
     enc = torch_api.Encoder(EncoderParams(**p), device="cpu")
     bs_ref = [bs for bs, _rec, _poc in ref.encode_stream(iter(frames))]
     out = list(enc.encode_stream(iter(frames)))
@@ -46,7 +54,7 @@ def test_ldp_stream_equals_jax_engine():
 def test_ra_stream_equals_jax_engine():
     frames = _ra_frames(17)
     p = dict(w=128, h=64, qp=32, keyint=0, bframes=15)
-    ref = jax_api.GopEncoder(EncoderParams(**p), analysis="jax")
+    ref = jax_api.GopEncoder(JaxParams(**p), analysis="jax")
     enc = torch_api.GopEncoder(EncoderParams(**p), device="cpu")
     bs_ref = [bs for bs, _rec, _poc in ref.encode_stream(iter(frames))]
     out = list(enc.encode_stream(iter(frames)))
@@ -58,18 +66,27 @@ def test_ra_stream_equals_jax_engine():
 
 
 def test_intra_frames_use_port_analysis(monkeypatch):
-    """I slices never fall through to the numpy oracle (api.py:557)."""
-    from xeve_tpu import api as base
-
+    """I slices go through the torch intra analysis, never the numpy
+    oracle (the port's copy is reachable only from the device analyzer's
+    host fallback)."""
     def refuse(*a, **k):
         raise AssertionError("numpy intra analysis reached")
 
-    monkeypatch.setattr(base, "analyze_frame", refuse)
+    calls = []
+    real = torch_api.analyze_frame_torch
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(port_analysis_np, "analyze_frame", refuse)
+    monkeypatch.setattr(port_device_analyzer, "analyze_frame", refuse)
+    monkeypatch.setattr(torch_api, "analyze_frame_torch", counted)
     enc = torch_api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=1),
                             device="cpu")
     for f in _ra_frames(2, 64, 64):
         enc.encode_frame(*f)
-    assert enc.analysis_calls == 2
+    assert enc.analysis_calls == 2 and len(calls) == 2
 
 
 @pytest.mark.parametrize("kw,exc", [
@@ -90,6 +107,16 @@ def test_unported_entry_points_raise():
         enc.encode_frames(frames)
     with pytest.raises(NotImplementedError):
         list(enc.encode_stream_meshed(iter(frames), mesh=None))
+
+
+def test_unported_coders_raise():
+    """coder="python" is the numpy FramePass oracle, not ported yet."""
+    with pytest.raises(NotImplementedError):
+        torch_api.Encoder(EncoderParams(w=64, h=64), coder="python",
+                          device="cpu")
+    with pytest.raises(ValueError, match="coding pass"):
+        torch_api.Encoder(EncoderParams(w=64, h=64), coder="numpy",
+                          device="cpu")
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -16,6 +16,11 @@ from xeve_tpu.ops import mc_np
 from xeve_tpu_torch.enc.me_torch import integer_me_plain, integer_me_torch
 from xeve_tpu_torch.ops import me_cuda
 
+# One intra-op thread: the test workers share the CPU, and torch's
+# OpenMP threads would spin against each other on the port's many
+# small ops (a 3 s encode took minutes under a full parallel run).
+torch.set_num_threads(1)
+
 PAD = 80
 
 
@@ -86,12 +91,34 @@ def test_wrapper_rejects_bad_input(bad):
         me_cuda.integer_me(cur, ref, PAD, R)
 
 
+def _card_pair(kind, h, w, seed):
+    """random: shifted content with flat areas (_random_pair); flat: one
+    constant plane, so every SAD is 0 and the zero MV must win on its bias;
+    binary: samples in {0, 1}, so many candidates tie on cost and the
+    first in raster order must win."""
+    if kind == "random":
+        return _random_pair(10, seed=seed, h=h, w=w)
+    if kind == "flat":
+        ref = np.full((h, w), 517, np.int32)
+        return ref.copy(), ref
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, (h, w)).astype(np.int32),
+            rng.integers(0, 2, (h, w)).astype(np.int32))
+
+
+# R from 0 to PAD, where every R but 16 gives 2R + 1 that is not a
+# multiple of the kernel's strip of 11 dx, and block counts per row that
+# are not a multiple of its group of 4 blocks (nbx = 1, 5, 6, 7)
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,R", [(64, 96, 4), (80, 96, 16), (48, 64, 40)])
-def test_kernel_equals_plain_on_card(h, w, R):
+@pytest.mark.parametrize("h,w,R,kind", [
+    (64, 96, 0, "random"), (64, 96, 1, "random"), (64, 96, 4, "random"),
+    (80, 96, 8, "random"), (80, 96, 16, "random"), (48, 80, 23, "random"),
+    (48, 64, 40, "random"), (48, 112, 16, "flat"), (32, 16, 40, "flat"),
+    (64, 80, 16, "binary"), (48, 112, 23, "binary"), (16, 64, 80, "random")])
+def test_kernel_equals_plain_on_card(h, w, R, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    cur, ref = _random_pair(10, seed=h + R, h=h, w=w)
+    cur, ref = _card_pair(kind, h, w, seed=h + R)
     c = torch.as_tensor(cur, device="cuda")
     r = torch.as_tensor(mc_np.pad_picture(ref, PAD), device="cuda")
     before = me_cuda.LAUNCHES
@@ -100,3 +127,5 @@ def test_kernel_equals_plain_on_card(h, w, R):
     assert me_cuda.LAUNCHES == before + 1
     mv0, cost0 = integer_me_plain(c, r, R, PAD)
     assert torch.equal(mv, mv0) and torch.equal(cost, cost0)
+    if kind == "flat":
+        assert not mv.any() and not cost.any()

@@ -1,6 +1,7 @@
-"""The torch port runs with JAX unimportable: a fresh interpreter with
-sys.modules["jax"] = None encodes two LD-P frames on the CPU with each
-analysis engine ("jax" and the fused "device" analyzer)."""
+"""The torch port runs with JAX and the JAX package unimportable: a fresh
+interpreter with sys.modules["jax"] = sys.modules["xeve_tpu"] = None
+encodes two LD-P frames on the CPU with each analysis engine ("jax" and
+the fused "device" analyzer)."""
 import os
 import subprocess
 import sys
@@ -10,10 +11,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["xeve_tpu"] = None
 import numpy as np
 import xeve_tpu_torch.api as api
-import xeve_tpu_torch.ops.me_cuda as me_cuda
-from xeve_tpu.params import EncoderParams
+from xeve_tpu_torch.params import EncoderParams
 rng = np.random.default_rng(1)
 base = rng.integers(64, 900, (64, 64))
 enc = api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=0), device="cpu")
@@ -34,14 +35,15 @@ for bs, rec, poc in dev_enc.encode_stream(iter(frames)):
     assert len(bs) > 0 and rec[0].shape == (64, 64)
     n += len(bs)
 assert dev_enc._device().dispatches == 2
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+assert not any(m.split(".")[0] in ("jax", "xeve_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("bytes", n)
 """
 
 
 def test_port_encodes_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # one intra-op thread, as in the test workers (test_torch_encode.py)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]

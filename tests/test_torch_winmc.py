@@ -15,6 +15,11 @@ from xeve_tpu.ops import mc_np
 from xeve_tpu_torch import tables
 from xeve_tpu_torch.enc import winmc_torch as wt
 
+# One intra-op thread: the test workers share the CPU, and torch's
+# OpenMP threads would spin against each other on the port's many
+# small ops (a 3 s encode took minutes under a full parallel run).
+torch.set_num_threads(1)
+
 PAD = 80
 
 

@@ -1,51 +1,86 @@
-"""Encoders whose analysis runs in PyTorch on an explicit device.
+"""Public encoder API of the PyTorch port: create/push/encode, mirroring the
+reference C API surface (inc/xeve.h xeve_create/xeve_push/xeve_encode).
 
-Encoder and GopEncoder are xeve_tpu.api's classes with one of two
-analysis engines:
+The port's copy of xeve_tpu/api.py, with its analysis in PyTorch on an
+explicit device.  Two analysis engines:
 
 - analysis="device" (the engine bench.py measures): the fused per-frame
-  analyzer, enc/device_analyzer.DeviceAnalyzer, behind the base's one
-  entry point `_device()` (api.py:391).  The base's device-engine
-  orchestration then runs unchanged: AI frame-parallel C passes,
-  dispatch-ahead and closed-loop LD-P, the RA sub-GOP pipeline with the
-  frame-parallel C pass, flush and prewarm.  `_device().dispatches`
-  counts the frames it analysed.
-- analysis="jax" (default): the JAX engine's per-frame analysis.  The
-  base constructor runs with the numpy engine so that it sets no
-  process-wide ME switch (api.py:70-75); every analysis route of the
-  "jax" engine is then taken over here: P and B slices through
-  `_analyze_inter` (api.py:705); I slices through `encode_frame`
-  (api.py:514) and `_encode_ra_frame` (api.py:1557), which hand the base
-  an `analysis_pre` computed at the qp the base will use, so the numpy
-  fall-through (api.py:557, :1621) is never reached.  `analysis_calls`
-  counts the frames this engine analysed.
+  analyzer, enc/device_analyzer.DeviceAnalyzer, behind `_device()`.  AI
+  runs frame-parallel C passes, LD-P dispatches ahead (or runs closed
+  loop), RA pipelines each sub-GOP into the frame-parallel C pass.
+  `_device().dispatches` counts the frames it analysed.
+- analysis="jax" (default): the JAX engine's per-frame analysis in torch:
+  I slices through enc/analysis_torch, P and B slices through
+  enc/analysis_inter_torch, whose integer ME is the CUDA kernel
+  csrc/me_full_search.cu on the card.  `analysis_calls` counts the frames
+  this engine analysed.
 
-The closed-loop C pass, HLS, DPB and RA ordering are the base's.
+The closed-loop coding pass is the native C library (native/xt_core.c).
+Not ported yet, and refused with NotImplementedError: the Main-profile
+EIPD analysis, rate control (rc_type != "cq"), DRA, the numpy coding pass
+(coder="python"), the batched all-intra `encode_frames` and the meshed
+sub-GOP analysis `encode_stream_meshed`.
 """
 from __future__ import annotations
 
-from xeve_tpu import api as _base
-from xeve_tpu.constants import SLICE_I
-from xeve_tpu.params import EncoderParams
+import concurrent.futures
+import hashlib
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
 
+import numpy as np
+
+from .constants import (NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS, NUT_SEI,
+                        QP_ADAPT_LD, QP_ADAPT_RA16, SLICE_I, SLICE_P, SLICE_B,
+                        chroma_qp_dynamic)
 from .device import resolve_device
 from .enc.analysis_inter_torch import analyze_frame_inter_torch
 from .enc.analysis_torch import analyze_frame_torch
 from .enc.device_analyzer import DeviceAnalyzer
+from .enc.frame_native import encode_frame_native
+from .enc.intra_frame_native import encode_intra_frame_native
+from .hls import SPS, PPS, SliceHeader, NalHeader, wrap_nal
+from .io.bits import BitWriter
+from .ops import mc_np
+from .ops import picman_np
+from .params import EncoderParams
+
+CABAC_ZERO_PARAM = 32
+
+# DPB picture padding (PIC_PAD_SIZE_L): xeve_tpu/enc/frame_pass.py's PAD_L
+PAD_L = 64 + 16
 
 
-class Encoder(_base.Encoder):
-    """EVC Baseline encoder (AI / low-delay P) with torch analysis."""
+@dataclass
+class Stat:
+    """Per-AU encode statistics (XEVE_STAT analog, inc/xeve.h:563-585,
+    filled like xeve_enc.c:1296-1310)."""
+    bytes: int = 0
+    nalu_type: int = 0
+    slice_type: int = 0
+    qp: int = 0
+    poc: int = 0
+    tid: int = 0
+    ref_pocs_l0: list = field(default_factory=list)
+    ref_pocs_l1: list = field(default_factory=list)
+
+
+class Encoder:
+    """EVC Baseline encoder (AI / low-delay / RA via GopEncoder)."""
 
     def __init__(self, params: EncoderParams, analysis: str = "jax",
                  coder: str = "native", device="cuda"):
         if analysis not in ("jax", "device"):
             raise ValueError(f"unknown analysis engine {analysis!r}")
-        self.device = resolve_device(device)
-        super().__init__(params,
-                         analysis="device" if analysis == "device"
-                         else "numpy",
-                         coder=coder, me_engine="numpy")
+        if coder == "python":
+            raise NotImplementedError("the numpy coding pass (FramePass) is "
+                                      "not ported to torch yet")
+        if coder != "native":
+            raise ValueError(f"unknown coding pass {coder!r}")
+        self.p = params.validate()
         p = self.p
         if p.tool_eipd:
             raise NotImplementedError("Main-profile EIPD analysis is not "
@@ -55,9 +90,201 @@ class Encoder(_base.Encoder):
                                       "ported to torch yet")
         if p.tool_dra:
             raise NotImplementedError("DRA is not ported to torch yet")
-        if analysis == "jax":
-            self.analysis_engine = "torch"
+        self.device = resolve_device(device)
+        if p.btt < 0:
+            # auto: BTT on for Main AI with the native coder (stage-2
+            # rectangular leaves need the exact-RD trial machinery)
+            p.btt = 1 if (p.profile == 1 and p.keyint == 1 and p.exact_rd
+                          and p.tile_columns * p.tile_rows == 1
+                          and not p.aq_mode) else 0
+        self.pic_cnt = 0
+        self.sps = self._make_sps()
+        self.pps = self._make_pps()
+        self.analysis_engine = analysis
+        self.coder_engine = coder
         self.analysis_calls = 0
+        self._dev = None
+        self._code_pool = None     # frame-parallel C-pass workers
+        self.dpb = []          # DPB entries (padded recon + mv map + tid)
+        self.poc = 0
+        self.last_intra_poc = -(10 ** 9)   # list constraint (decoder parity)
+        self._poc_state = picman_np.PocState()  # decoder-derivation mirror
+        self.last_stat: Stat | None = None      # per-AU stats (XEVE_STAT)
+        self._last_rec = None
+        self._gop_in = []      # pending display-order frames (RA reordering)
+        self._gop_base = 0
+        self._first_done = False
+
+    # ------------------------------------------------------------------
+    def _make_sps(self) -> SPS:
+        p = self.p
+        crop = (p.w != p.w_aligned) or (p.h != p.h_aligned)
+        return SPS(
+            profile_idc=p.profile,
+            level_idc=p.level_idc * 3,
+            pic_width_in_luma_samples=p.w_aligned,
+            pic_height_in_luma_samples=p.h_aligned,
+            picture_cropping_flag=1 if crop else 0,
+            picture_crop_right_offset=(p.w_aligned - p.w + 1) >> 1,
+            picture_crop_bottom_offset=(p.h_aligned - p.h + 1) >> 1,
+            bit_depth_luma_minus8=p.codec_bit_depth - 8,
+            bit_depth_chroma_minus8=p.codec_bit_depth - 8,
+            chroma_format_idc=1,
+            max_num_ref_pics=p.ref_pics,
+            log2_sub_gop_length=4 if p.bframes >= 15 else 0,
+            log2_ref_pic_gap_length=0,
+            # main profile always signals dquant (xevem_util.c:3196); our
+            # PPS keeps cu_qp_delta off so the payload stays identical
+            dquant_flag=1 if p.profile == 1 else 0,
+            tool_eipd=p.tool_eipd,
+            tool_cm_init=p.tool_cm_init,
+            tool_adcc=p.tool_adcc,
+            tool_iqt=p.tool_iqt,
+            tool_htdf=p.tool_htdf,
+            tool_ats=p.tool_ats,
+            tool_addb=p.tool_addb,
+            tool_dra=p.tool_dra,
+            sps_btt_flag=1 if p.btt else 0,
+            # fixed stage-1 geometry (matches the native split_check
+            # constants): CTU 64, min cb 4, 1:4 and ternary disabled
+            log2_ctu_size_minus5=1,
+            log2_min_cb_size_minus2=0,
+            log2_diff_ctu_max_14_cb_size=6,
+            log2_diff_ctu_max_tt_cb_size=2,
+            log2_diff_min_cb_min_tt_cb_size_minus2=1,
+        )
+
+    def _make_pps(self) -> PPS:
+        p = self.p
+        # AQ -> cu_qp_delta signalling (xeve_enc.c:1454); area 6 baseline
+        # (observed reference default) / 10 main (xevem.c:1159)
+        dqp_kw = {}
+        if p.aq_mode:
+            dqp_kw = dict(cu_qp_delta_enabled_flag=1,
+                          cu_qp_delta_area=10 if p.profile == 1 else 6)
+        n = p.tile_columns * p.tile_rows
+        if n > 1:
+            id_len_m1 = 0
+            while n > (1 << id_len_m1):      # xevem_util.c:3281
+                id_len_m1 += 1
+            return PPS(single_tile_in_pic_flag=0,
+                       num_tile_columns_minus1=p.tile_columns - 1,
+                       num_tile_rows_minus1=p.tile_rows - 1,
+                       uniform_tile_spacing_flag=1,
+                       loop_filter_across_tiles_enabled_flag=0,
+                       tile_offset_lens_minus1=31,
+                       tile_id_len_minus1=id_len_m1, **dqp_kw)
+        return PPS(**dqp_kw)
+
+    def _n_tiles(self):
+        return self.p.tile_columns * self.p.tile_rows
+
+    def _sh_tiles(self, sh, tile_lens):
+        """Fill multi-tile slice-header fields (entry points are
+        byte-length-minus1 of each non-final substream,
+        xeve_enc.c:545-551)."""
+        n = self._n_tiles()
+        if n > 1:
+            sh.single_tile_in_slice_flag = 0
+            sh.first_tile_id = 0
+            sh.last_tile_id = n - 1
+            sh.entry_point_offsets = [l - 1 for l in tile_lens[:n - 1]]
+
+    def _headers(self) -> bytes:
+        out = b""
+        bw = BitWriter()
+        NalHeader(NUT_SPS, 0).write(bw)
+        self.sps.write(bw)
+        out += wrap_nal(bw.get_bytes())
+        bw = BitWriter()
+        NalHeader(NUT_PPS, 0).write(bw)
+        self.pps.write(bw, main=self.sps.profile_idc == 1)
+        out += wrap_nal(bw.get_bytes())
+        return out
+
+    def _pad_input(self, y, u, v):
+        """Edge-replicate to the 8-aligned coded size (SPS crop signals the
+        real dimensions)."""
+        p = self.p
+        if p.w == p.w_aligned and p.h == p.h_aligned:
+            return (np.asarray(y, np.int32), np.asarray(u, np.int32),
+                    np.asarray(v, np.int32))
+        ey = p.h_aligned - p.h
+        ex = p.w_aligned - p.w
+        y = np.pad(np.asarray(y, np.int32), ((0, ey), (0, ex)), mode="edge")
+        u = np.pad(np.asarray(u, np.int32), ((0, ey // 2 + (ey & 1)), (0, ex // 2 + (ex & 1))), mode="edge")
+        v = np.pad(np.asarray(v, np.int32), ((0, ey // 2 + (ey & 1)), (0, ex // 2 + (ex & 1))), mode="edge")
+        u = u[:p.h_aligned // 2, :p.w_aligned // 2]
+        v = v[:p.h_aligned // 2, :p.w_aligned // 2]
+        return y, u, v
+
+    # ------------------------------------------------------------------
+    def _slice_type_for(self, pic_cnt: int) -> int:
+        p = self.p
+        if p.keyint == 1 or pic_cnt == 0:
+            return SLICE_I
+        if p.keyint > 1 and pic_cnt % p.keyint == 0:
+            return SLICE_I
+        return SLICE_P
+
+    def _fill_stat(self, nbytes, nut, slice_type, qp, poc, tid,
+                   refp=None, refp1=None, rec=None):
+        """Per-AU stat record (xeve_enc.c:1296-1310 analog)."""
+        self.last_stat = Stat(
+            bytes=nbytes, nalu_type=nut, slice_type=slice_type, qp=qp,
+            poc=poc, tid=tid,
+            ref_pocs_l0=[r["poc"] for r in (refp or [])],
+            ref_pocs_l1=[r["poc"] for r in (refp1 or [])])
+        self._last_rec = rec
+
+    # ------------------------------------------------------------------
+    # runtime config surface (xeve_config analog, xeve.c:148-314)
+    def config_set(self, key: str, value):
+        if key == "qp":
+            self.p.qp = int(value)
+        elif key == "use_deblock":
+            self.p.use_deblock = bool(value)
+        elif key == "use_pic_sign":
+            self.p.use_pic_sign = bool(value)
+        elif key == "bitrate_kbps":
+            self.p.bitrate_kbps = float(value)
+        elif key == "search_range":
+            self.p.search_range = int(value)
+        else:
+            raise KeyError(f"unknown config key {key}")
+
+    def config_get(self, key: str):
+        if key == "qp":
+            return self.p.qp
+        if key == "width":
+            return self.p.w
+        if key == "height":
+            return self.p.h
+        if key == "bitrate_kbps":
+            return self.p.bitrate_kbps
+        if key == "recon":
+            return self._last_rec
+        if key == "stat":
+            return self.last_stat
+        if key == "use_deblock":
+            return self.p.use_deblock
+        if key == "use_pic_sign":
+            return self.p.use_pic_sign
+        raise KeyError(f"unknown config key {key}")
+
+    def _aq_map(self, y, u, v, extra_mv_fields=None):
+        """Per-SCU AQ qp-offset map (None when AQ is off): variance model
+        of xeve_fcst.c:271, optionally sharpened by cutree-lite
+        propagation along dependent frames' MV fields."""
+        if not self.p.aq_mode:
+            return None
+        from .enc.aq import (aq_block_offsets, offsets_to_scu_map,
+                             cutree_propagate)
+        off = aq_block_offsets(np.asarray(y), np.asarray(u),
+                               np.asarray(v), self.p.codec_bit_depth)
+        if extra_mv_fields:
+            off = cutree_propagate(off, extra_mv_fields)
+        return offsets_to_scu_map(off, self.p.h_aligned, self.p.w_aligned)
 
     def _device(self):
         if self._dev is None:
@@ -68,52 +295,856 @@ class Encoder(_base.Encoder):
                 device=self.device)
         return self._dev
 
-    def encode_frames(self, frames, batch: int = 4):
-        raise NotImplementedError("batched all-intra analysis is not ported "
-                                  "to torch yet; use encode_stream")
+    def prewarm(self) -> float:
+        """Run every analysis signature this configuration will use once on
+        dummy frames before the first real frame: the device engine's
+        dispatch signatures (concurrently, each read back), or the "jax"
+        engine's intra and inter analyses, which build the ME kernel at
+        first use on the card.  Dummy frames are evicted afterwards.
+        Returns seconds spent."""
+        t0 = time.time()
+        p = self.p
+        qp = p.qp
+        qp_y, qp_u, qp_v = self._qp_triplet(qp)
+        bd = p.codec_bit_depth
+        z = np.zeros((p.h_aligned, p.w_aligned), np.int16)
+        zc = np.zeros((p.h_aligned // 2, p.w_aligned // 2), np.int16)
+        dev = None
+        base = -(1 << 20)
+        if self.analysis_engine == "device":
+            dev = self._device()
+            for i in range(3):
+                dev.put_frame(base + i, z, zc, zc)
+            sigs = [dict()]
+            if p.keyint != 1:
+                sigs.append(dict(ref_poc=base))
+                if p.ref_pics > 1:
+                    sigs.append(dict(ref_poc=base, ref0b_poc=base + 1))
+            if p.bframes >= 15:
+                sigs.append(dict(ref_poc=base, ref1_poc=base + 1))
+                if p.ref_pics > 1:
+                    sigs.append(dict(ref_poc=base, ref1_poc=base + 1,
+                                     ref0b_poc=base + 2,
+                                     ref1b_poc=base + 2))
+
+            def warm_dev(sig):
+                hd = dev.dispatch(base + 2, qp, qp_y, qp_u, qp_v, **sig)
+                np.asarray(hd.vec)      # force completion (readback)
+
+            jobs = [(warm_dev, (s,)) for s in sigs]
+        else:
+            def warm_intra():
+                analyze_frame_torch(z, zc, zc, qp, qp_y, qp_u, qp_v, bd,
+                                    min_log2=p.min_cu_log2,
+                                    device=self.device)
+
+            def warm_inter(with_b):
+                zi = np.zeros((p.h_aligned, p.w_aligned), np.int32)
+                zci = np.zeros((p.h_aligned // 2, p.w_aligned // 2),
+                               np.int32)
+                ref = {"y_pad": mc_np.pad_picture(zi, PAD_L),
+                       "u_pad": mc_np.pad_picture(zci, PAD_L // 2),
+                       "v_pad": mc_np.pad_picture(zci, PAD_L // 2),
+                       "poc": base}
+                analyze_frame_inter_torch(
+                    zi, zci, zci, [ref], qp, qp_y, qp_u, qp_v, bd,
+                    search_range=p.search_range,
+                    refp1=[dict(ref)] if with_b else None,
+                    min_log2=p.min_cu_log2, device=self.device)
+
+            jobs = [(warm_intra, ())]
+            if p.keyint != 1:
+                jobs.append((warm_inter, (p.bframes >= 15,)))
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(5, len(jobs))) as ex:
+            for fu in [ex.submit(fn, *a) for fn, a in jobs]:
+                fu.result()
+        if dev is not None:
+            for i in range(3):
+                dev.ring.pop(base + i, None)
+                dev.host_ring.pop(base + i, None)
+        return time.time() - t0
+
+    def _qp_triplet(self, qp: int):
+        """(qp_y, qp_u, qp_v) at codec bit depth (xeve_enc.c:1463 set_sh);
+        Main+IQT uses the main chroma QP table (xevem_tbl.c)."""
+        p = self.p
+        bd = p.codec_bit_depth
+        qp_y = qp + 6 * (bd - 8)
+        qpu_i = int(np.clip(qp + p.qp_cb_offset, -6 * (bd - 8), 57))
+        qpv_i = int(np.clip(qp + p.qp_cr_offset, -6 * (bd - 8), 57))
+        qp_u = chroma_qp_dynamic(qpu_i, p.tool_iqt) + 6 * (bd - 8)
+        qp_v = chroma_qp_dynamic(qpv_i, p.tool_iqt) + 6 * (bd - 8)
+        return qp_y, qp_u, qp_v
+
+    def _slice_qp(self, slice_type: int) -> int:
+        """Low-delay hierarchical QP offsets (xeve_set_sh, xeve_enc.c:1496;
+        xeve_qp_adapt_param_ld with ref gap 1 -> depth 0 for I, 2 for P)."""
+        p = self.p
+        if p.keyint == 1:
+            return p.qp
+        depth = 0 if slice_type == SLICE_I else 2
+        off_layer, off_model, scale_model = QP_ADAPT_LD[depth]
+        qp = p.qp + off_layer
+        dqp = qp * scale_model + off_model + 0.5
+        qp += int(np.floor(np.clip(dqp, 0.0, 3.0)))
+        return int(np.clip(qp, 0, 51))
 
     def _analyze_intra(self, y, u, v, qp, **kw):
+        """The "jax" engine's intra analysis of one padded frame."""
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
         self.analysis_calls += 1
         return analyze_frame_torch(y, u, v, qp, qp_y, qp_u, qp_v,
                                    self.p.codec_bit_depth, device=self.device,
                                    **kw)
 
-    def encode_frame(self, y, u, v, analysis_pre=None):
-        if analysis_pre is None and self.analysis_engine == "torch" and \
-                self._slice_type_for(self.pic_cnt) == SLICE_I:
-            # the base pads again from the raw planes; RC is off, so its
-            # qp is _slice_qp (api.py:532-535)
-            analysis_pre = self._analyze_intra(
-                *self._pad_input(y, u, v), self._slice_qp(SLICE_I),
-                min_log2=self.p.min_cu_log2)
-        return super().encode_frame(y, u, v, analysis_pre)
-
     def _analyze_inter(self, y, u, v, refp, qp, qp_y, qp_u, qp_v, bd,
                        refp1=None, search_range=16):
+        """The "jax" engine's inter analysis of one padded frame."""
         self.analysis_calls += 1
         return analyze_frame_inter_torch(y, u, v, refp, qp, qp_y, qp_u, qp_v,
                                          bd, refp1=refp1,
                                          search_range=search_range,
                                          device=self.device)
 
+    def encode_frame(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     analysis_pre=None):
+        """Encode one frame (I or low-delay P per keyint).  Inputs are 2-D
+        arrays at codec bit depth.  Returns (bitstream_bytes,
+        (rec_y, rec_u, rec_v)).  analysis_pre: decision maps already
+        computed by the pipelined stream path (encode_stream)."""
+        p = self.p
+        y, u, v = self._pad_input(y, u, v)
+        slice_type = self._slice_type_for(self.pic_cnt)
+        if slice_type == SLICE_P:
+            return self._encode_frame_p(y, u, v, analysis_pre)
+        nut = NUT_IDR if (self.pic_cnt == 0 or (p.closed_gop and p.keyint == 1)) else NUT_NONIDR
+        self.last_intra_poc = self.poc   # decoder excludes pre-I refs
 
-class GopEncoder(Encoder, _base.GopEncoder):
-    """RA GOP16 (bframes >= 15) or streaming I/P, with torch analysis."""
+        out = b""
+        if self.pic_cnt == 0 or (nut == NUT_IDR and self.pic_cnt > 0):
+            out += self._headers()
 
-    def _encode_ra_frame(self, poc, tid, disp_idx, is_ref, slice_type,
-                         analysis_pre=None, aq_map=None):
-        if analysis_pre is None and self.analysis_engine == "torch" and \
-                slice_type == SLICE_I:
-            # same qp and default min_log2 as the base's "jax" I branch
-            # (api.py:1575-1576, :1619)
-            qp = self._ra_qp(0) if self.p.bframes >= 15 \
-                else self._slice_qp(SLICE_I)
-            analysis_pre = self._analyze_intra(*self._gop_in[disp_idx], qp)
-        return super()._encode_ra_frame(poc, tid, disp_idx, is_ref,
-                                        slice_type, analysis_pre=analysis_pre,
-                                        aq_map=aq_map)
+        qp = self._slice_qp(slice_type)
+        bd = p.codec_bit_depth
+        qp_y, qp_u, qp_v = self._qp_triplet(qp)
+
+        if analysis_pre is not None:
+            analysis = analysis_pre
+        elif self.analysis_engine == "device":
+            dev = self._device()
+            if not dev.has_frame(self.poc):
+                dev.put_frame(self.poc, y, u, v)
+            analysis = dev.collect(dev.dispatch(self.poc, qp, qp_y, qp_u,
+                                                qp_v))
+        else:
+            analysis = self._analyze_intra(y, u, v, qp,
+                                           min_log2=p.min_cu_log2)
+
+        sh = SliceHeader(slice_type=SLICE_I, qp=qp,
+                         qp_u_offset=p.qp_cb_offset, qp_v_offset=p.qp_cr_offset,
+                         deblocking_filter_on=1 if p.use_deblock else 0)
+        bw = BitWriter()
+        NalHeader(nut, 0).write(bw)
+        sh.write(bw, nut, self.sps, self.pps)
+        sh_bytes = bw.get_bytes()
+
+        slice_payload, bin_count, rec_y, rec_u, rec_v, _tl = \
+            encode_intra_frame_native(p.w_aligned, p.h_aligned, bd, qp,
+                                      p.qp_cb_offset, p.qp_cr_offset,
+                                      y, u, v, analysis,
+                                      use_rdoq=p.rdoq,
+                                      use_deblock=p.use_deblock,
+                                      aq_map=self._aq_map(y, u, v),
+                                      cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                                      dquant_flag=self.sps.dquant_flag,
+                                      exact_rd=p.exact_rd)
+        payload = sh_bytes + slice_payload
+        payload += self._cabac_zero_words(bin_count, len(payload))
+        out += wrap_nal(payload)
+
+        if p.use_pic_sign:
+            out += self._signature_sei(rec_y, rec_u, rec_v)
+
+        self._dpb_push(rec_y, rec_u, rec_v, None)
+        self.pic_cnt += 1
+        self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0,
+                        rec=(rec_y, rec_u, rec_v))
+        return out, (rec_y, rec_u, rec_v)
+
+    def _dpb_push(self, rec_y, rec_u, rec_v, map_mv, poc=None, tid=0,
+                  is_ref=True, is_idr=False, list0_poc=None):
+        h_scu = (self.p.h_aligned + 3) >> 2
+        w_scu = (self.p.w_aligned + 3) >> 2
+        if map_mv is None:
+            map_mv = np.zeros((h_scu, w_scu, 2, 2), dtype=np.int32)
+        if poc is None:
+            poc = self.poc
+            self.poc += 1
+        pic = {
+            "poc": poc,
+            "tid": tid,
+            "ref": is_ref,
+            "list0_poc": list0_poc if list0_poc is not None else poc,
+            "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32), PAD_L),
+            "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32), PAD_L // 2),
+            "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32), PAD_L // 2),
+            "map_mv": map_mv,
+        }
+        picman_np.dpb_mark_and_insert(self.dpb, pic, is_idr)
+
+    def _encode_frame_p(self, y, u, v, analysis_pre=None):
+        p = self.p
+        bd = p.codec_bit_depth
+        qp = self._slice_qp(SLICE_P)
+        qp_y, qp_u, qp_v = self._qp_triplet(qp)
+        refp, _ = picman_np.build_ref_lists(
+            self.dpb, self.poc, 0, SLICE_B, SLICE_P, SLICE_P,
+            self.sps.max_num_ref_pics, self.last_intra_poc)
+        if analysis_pre is not None:
+            an = analysis_pre
+        elif self.analysis_engine == "device":
+            dev = self._device()
+            if not dev.has_frame(self.poc):
+                dev.put_frame(self.poc, y, u, v)
+            r0b = refp[1]["poc"] if len(refp) > 1 else None
+            an = dev.collect(dev.dispatch(self.poc, qp, qp_y, qp_u, qp_v,
+                                          ref_poc=refp[0]["poc"],
+                                          ref0b_poc=r0b))
+        else:
+            an = self._analyze_inter(np.asarray(y, np.int32),
+                                     np.asarray(u, np.int32),
+                                     np.asarray(v, np.int32), refp, qp, qp_y,
+                                     qp_u, qp_v, bd,
+                                     search_range=p.search_range)
+        slice_payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
+            self._code_slice(SLICE_P, self.poc, qp, y, u, v, an, refp, None,
+                             aq_map=self._aq_map(y, u, v))
+        sh = SliceHeader(slice_type=SLICE_P, qp=qp,
+                         qp_u_offset=p.qp_cb_offset, qp_v_offset=p.qp_cr_offset,
+                         deblocking_filter_on=1 if p.use_deblock else 0)
+        self._sh_tiles(sh, tile_lens)
+        bw = BitWriter()
+        NalHeader(NUT_NONIDR, 0).write(bw)
+        sh.write(bw, NUT_NONIDR, self.sps, self.pps)
+        payload = bw.get_bytes() + slice_payload
+        payload += self._cabac_zero_words(bin_count, len(payload))
+        out = wrap_nal(payload)
+        if p.use_pic_sign:
+            out += self._signature_sei(rec_y, rec_u, rec_v)
+        self._dpb_push(rec_y, rec_u, rec_v, map_mv)
+        self.pic_cnt += 1
+        self._fill_stat(len(out), NUT_NONIDR, SLICE_P, qp, self.poc - 1, 0,
+                        refp=refp, rec=(rec_y, rec_u, rec_v))
+        return out, (rec_y, rec_u, rec_v)
+
+    def _code_slice(self, slice_type, poc, qp, y, u, v, an, refp, refp1,
+                    aq_map=None):
+        """Run the closed-loop slice coding pass (native C).  Returns
+        (payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens)."""
+        p = self.p
+        payload, bin_count, rec_y, rec_u, rec_v, map_mv, _refi, tl = \
+            encode_frame_native(p.w_aligned, p.h_aligned, p.codec_bit_depth,
+                                qp, p.qp_cb_offset, p.qp_cr_offset,
+                                slice_type, poc, y, u, v, an,
+                                refp=refp, refp1=refp1, pad_l=PAD_L,
+                                use_rdoq=p.rdoq,
+                                use_deblock=p.use_deblock,
+                                main_eipd=p.tool_eipd,
+                                tool_iqt=p.tool_iqt,
+                                cm_init=p.tool_cm_init,
+                                tile_cols=p.tile_columns,
+                                tile_rows=p.tile_rows,
+                                threads=p.threads,
+                                aq_map=aq_map,
+                                cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                                dquant_flag=self.sps.dquant_flag,
+                                tool_ats=p.tool_ats,
+                                tool_htdf=p.tool_htdf,
+                                tool_addb=p.tool_addb,
+                                sps_btt=p.btt,
+                                exact_rd=p.exact_rd)
+        return payload, bin_count, rec_y, rec_u, rec_v, map_mv, tl
+
+    def encode_frames(self, frames, batch: int = 4):
+        raise NotImplementedError("batched all-intra analysis is not ported "
+                                  "to torch yet; use encode_stream")
+
+    @staticmethod
+    def _frame_workers():
+        """Native coding-pass worker threads for frame-parallel coding
+        (XEVE_TPU_FRAME_WORKERS env override; default = CPU count, max 4).
+        The C pass releases the GIL, so independent frames of a sub-GOP
+        code concurrently."""
+        return max(1, int(os.environ.get(
+            "XEVE_TPU_FRAME_WORKERS", str(min(4, os.cpu_count() or 1)))))
+
+    def encode_stream(self, frames, ahead: int = 3):
+        """Encode an iterable of (y, u, v) frames; yields (bitstream_bytes,
+        (rec_y, rec_u, rec_v), poc) per frame in display order (AI/LD).
+
+        With the device analysis engine the fused analysis of up to `ahead`
+        future frames runs on the device while the native C pass codes the
+        current frame (analysis references *original* frames, so it never
+        waits for reconstruction).
+        """
+        p = self.p
+        if self.analysis_engine != "device":
+            for (y, u, v) in frames:
+                bs, rec = self.encode_frame(y, u, v)
+                yield bs, rec, self.poc - 1
+            return
+        dev = self._device()
+        pending = deque()
+        disp = self.pic_cnt
+
+        # all-intra frames are fully independent: run their closed-loop C
+        # passes on the frame-worker pool (emission stays serial, so the
+        # bitstream is identical to the serial path)
+        par_ai = p.keyint == 1 and self._frame_workers() > 1
+        if par_ai and self._code_pool is None:
+            self._code_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=self._frame_workers(),
+                thread_name_prefix="xt-frame")
+
+        def code_ai(yuv, hd):
+            y, u, v = yuv
+            qp = self._slice_qp(SLICE_I)
+            return encode_intra_frame_native(
+                p.w_aligned, p.h_aligned, p.codec_bit_depth, qp,
+                p.qp_cb_offset, p.qp_cr_offset, y, u, v, dev.collect(hd),
+                use_rdoq=p.rdoq, use_deblock=p.use_deblock,
+                aq_map=self._aq_map(y, u, v),
+                cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                dquant_flag=self.sps.dquant_flag,
+                exact_rd=p.exact_rd)
+
+        def dispatch(fr):
+            nonlocal disp
+            y, u, v = self._pad_input(*fr)
+            st = self._slice_type_for(disp)
+            qp = self._slice_qp(st)
+            qp_y, qp_u, qp_v = self._qp_triplet(qp)
+            dev.put_frame(disp, y, u, v)
+            ref = ref0b = None
+            if st != SLICE_I:
+                ref = disp - 1
+                # second L0 ref (refi=1): previous-but-one, unless it
+                # precedes the last I (decoder list constraint)
+                last_i = (disp // p.keyint) * p.keyint if p.keyint > 1 else 0
+                if (p.ref_pics > 1 and disp - 2 >= last_i
+                        and dev.has_frame(disp - 2)):
+                    ref0b = disp - 2
+            hd = dev.dispatch_bg(disp, qp, qp_y, qp_u, qp_v, ref_poc=ref,
+                                 ref0b_poc=ref0b)
+            if par_ai:
+                hd = self._code_pool.submit(code_ai, (y, u, v), hd)
+            pending.append(((y, u, v), hd))
+            disp += 1
+
+        def code_next():
+            yuv, hd = pending.popleft()
+            if par_ai:
+                qp = self._slice_qp(SLICE_I)
+                payload, bin_count, rec_y, rec_u, rec_v, _tl = hd.result()
+                nut = NUT_IDR if (self.pic_cnt == 0
+                                  or p.closed_gop) else NUT_NONIDR
+                self.last_intra_poc = self.poc
+                out = b""
+                if self.pic_cnt == 0 or nut == NUT_IDR:
+                    out += self._headers()
+                sh = SliceHeader(slice_type=SLICE_I, qp=qp,
+                                 qp_u_offset=p.qp_cb_offset,
+                                 qp_v_offset=p.qp_cr_offset,
+                                 deblocking_filter_on=1 if p.use_deblock
+                                 else 0)
+                bw = BitWriter()
+                NalHeader(nut, 0).write(bw)
+                sh.write(bw, nut, self.sps, self.pps)
+                payload = bw.get_bytes() + payload
+                payload += self._cabac_zero_words(bin_count, len(payload))
+                out += wrap_nal(payload)
+                if p.use_pic_sign:
+                    out += self._signature_sei(rec_y, rec_u, rec_v)
+                self._dpb_push(rec_y, rec_u, rec_v, None)
+                self.pic_cnt += 1
+                self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0,
+                                rec=(rec_y, rec_u, rec_v))
+                return out, (rec_y, rec_u, rec_v), self.poc - 1
+            bs, rec = self.encode_frame(*yuv, analysis_pre=dev.collect(hd))
+            if p.closed_loop_ld:
+                # swap the coded frame's ring entry for its reconstruction
+                # so the NEXT P frame's ME references decoded pixels (the
+                # open-loop original-vs-recon mismatch accumulates along
+                # P chains; measured +6 BD points on LD — BDRATE.md)
+                dev.put_frame(self.poc - 1,
+                              np.asarray(rec[0], np.int16),
+                              np.asarray(rec[1], np.int16),
+                              np.asarray(rec[2], np.int16), replace=True)
+            return bs, rec, self.poc - 1
+
+        # closed-loop LD cannot dispatch ahead (frame k's analysis needs
+        # frame k-1's reconstruction); open-loop overlaps `ahead` frames
+        if p.closed_loop_ld:
+            ahead = 0
+        for fr in frames:
+            dispatch(fr)
+            if len(pending) > ahead:
+                yield code_next()
+        while pending:
+            yield code_next()
+
+    def _cabac_zero_words(self, bin_count: int, num_bytes_in_units: int) -> bytes:
+        """xeve_enc.c:553-577 conformance stuffing."""
+        p = self.p
+        log2_sub_wh_c = 2
+        raw_bits = p.w_aligned * p.h_aligned * (p.codec_bit_depth +
+                                2 * (p.codec_bit_depth >> log2_sub_wh_c))
+        threshold = (CABAC_ZERO_PARAM // 3) * num_bytes_in_units + raw_bits // 32
+        if bin_count >= threshold:
+            target = ((bin_count - raw_bits // 32) * 3 + CABAC_ZERO_PARAM - 1) // CABAC_ZERO_PARAM
+            if target > num_bytes_in_units:
+                need = target - num_bytes_in_units
+                words = (need + 2) // 3
+                return b"\x00\x00" * words
+        return b""
+
+    def _signature_sei(self, rec_y, rec_u, rec_v) -> bytes:
+        """Picture-signature SEI (xeve_eco.c:292-322): MD5 per plane over
+        16-bit little-endian samples."""
+        bw = BitWriter()
+        NalHeader(NUT_SEI, 0).write(bw)
+        bw.write(0x10, 8)   # XEVE_UD_PIC_SIGNATURE
+        bw.write(16, 8)
+        for plane in (rec_y, rec_u, rec_v):
+            dig = hashlib.md5(plane.astype('<u2').tobytes()).digest()
+            for b in dig:
+                bw.write(b, 8)
+        return wrap_nal(bw.get_bytes())
+
+
+def psnr(a: np.ndarray, b: np.ndarray, bd: int = 10) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    if mse == 0:
+        return 99.0
+    peak = (1 << bd) - 1
+    return 10.0 * np.log10(peak * peak / mse)
+
+
+# ----------------------------------------------------------------------
+# Random-access GOP16 engine (xeve default -b 15 structure)
+# ----------------------------------------------------------------------
+
+
+class GopEncoder(Encoder):
+    """Push/flush interface with RA GOP16 reordering when bframes >= 15;
+    degenerates to streaming I/P when bframes == 0."""
+
+    def push_frame(self, y, u, v):
+        p = self.p
+        if p.bframes < 15 or p.keyint == 1:
+            bs, rec = self.encode_frame(y, u, v)
+            return [(bs, rec, self.poc - 1)]
+        self._gop_in.append(self._pad_input(y, u, v))
+        out = []
+        if not self._first_done:
+            self._poc_state.derive(True, 0, 4)
+            bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
+            self._first_done = True
+            out.append((bs, rec, 0))
+            return out
+        if len(self._gop_in) == 17:   # frame 0 + 16 display frames buffered
+            out.extend(self._encode_subgop())
+        return out
+
+    def _ra_order_derived(self, base, limit=None):
+        """Coding order of one (possibly truncated) sub-GOP with the POC
+        every conformant decoder will DERIVE from the tid sequence
+        (xeve_poc_derivation) rather than the display-grid value:
+        [(poc, disp_poc, tid, is_ref)].  For complete sub-GOPs poc ==
+        disp_poc; for a truncated FIRST sub-GOP (bumping before poc 16
+        exists) the derivation shifts — using the derived value keeps the
+        encoder's DPB/ref-list/scaling state identical to the decoder's.
+        (The reference encoder itself diverges from its own decoder
+        derivation in this case, xeve_enc.c:1146-1160.)  Advances the
+        derivation state: call exactly once per coded sub-GOP."""
+        out = []
+        for (disp, tid, is_ref) in picman_np.ra_gop16_order(base):
+            if limit is not None and disp > limit:
+                continue
+            poc = self._poc_state.derive(False, tid, 4)
+            out.append((poc, disp, tid, is_ref))
+        return out
+
+    def flush(self):
+        """Encode trailing frames as a truncated sub-GOP: the hierarchical
+        coding order restricted to existing display pocs, coded under the
+        decoder-derived POCs (_ra_order_derived).  With the device engine
+        all remaining analyses are dispatched ahead (same overlap as the
+        full-GOP pipeline)."""
+        out = []
+        base = self._gop_base
+        n_left = len(self._gop_in) - 1
+        limit = base + n_left
+        order = self._ra_order_derived(base, limit)
+        if self.analysis_engine == "device" and order and n_left > 0:
+            dev = self._device()
+            for (poc, disp, tid, is_ref) in order:
+                dev.put_frame(poc, *self._gop_in[disp - base])
+            if not dev.has_frame(base):
+                dev.put_frame(base, *self._gop_in[0])
+            handles = []
+            shadow = self._shadow_dpb()
+            for (poc, disp, tid, is_ref) in order:
+                depth = 1 if disp % 16 == 0 else tid + 1
+                qp = self._ra_qp(depth)
+                qp_y, qp_u, qp_v = self._qp_triplet(qp)
+                ref0, ref0b, ref1, ref1b = self._predict_refs(shadow, dev,
+                                                              poc, tid, base)
+                hd = dev.dispatch_bg(poc, qp, qp_y, qp_u, qp_v, ref_poc=ref0,
+                                     ref1_poc=ref1, ref0b_poc=ref0b,
+                                     ref1b_poc=ref1b)
+                handles.append((poc, disp, tid, is_ref, hd))
+                picman_np.dpb_mark_and_insert(
+                    shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
+            for (poc, disp, tid, is_ref, hd) in handles:
+                an = dev.collect(hd)
+                bs, rec = self._encode_ra_frame(poc, tid, disp - base, is_ref,
+                                                SLICE_B, analysis_pre=an)
+                out.append((bs, rec, disp))
+        else:
+            for (poc, disp, tid, is_ref) in order:
+                bs, rec = self._encode_ra_frame(poc, tid, disp - base, is_ref,
+                                                SLICE_B)
+                out.append((bs, rec, disp))
+        self._gop_in = self._gop_in[-1:]
+        self._gop_base = limit
+        return out
+
+    def _encode_subgop(self):
+        out = []
+        base = self._gop_base
+        for (poc, disp, tid, is_ref) in self._ra_order_derived(base):
+            bs, rec = self._encode_ra_frame(poc, tid, disp - base, is_ref,
+                                            SLICE_B)
+            out.append((bs, rec, disp))
+        self._gop_base = base + 16
+        self._gop_in = self._gop_in[-1:]
+        return out
+
+    def encode_stream(self, frames, ahead: int = 3):
+        """RA GOP16 stream encode, coding order (bs, rec, poc) per frame.
+        With the device engine all 16 analyses of a sub-GOP are dispatched
+        up front (ME against originals; hierarchical refs L0 = poc - lowbit,
+        L1 = poc + lowbit) and the native coding pass overlaps them."""
+        p = self.p
+        if p.bframes < 15 or p.keyint == 1:
+            yield from super().encode_stream(frames, ahead)
+            return
+        if self.analysis_engine != "device":
+            for fr in frames:
+                yield from self.push_frame(*fr)
+            yield from self.flush()
+            return
+        dev = self._device()
+        for fr in frames:
+            self._gop_in.append(self._pad_input(*fr))
+            # stream the upload NOW (display poc == derived poc for full
+            # sub-GOPs) so the ~6 MB/frame device transfer overlaps the
+            # previous sub-GOP's native coding pass instead of stalling
+            # the first collects at the sub-GOP boundary
+            dev.put_frame(self._gop_base + len(self._gop_in) - 1,
+                          *self._gop_in[-1])
+            if not self._first_done:
+                self._poc_state.derive(True, 0, 4)
+                bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
+                self._first_done = True
+                yield bs, rec, 0
+                continue
+            if len(self._gop_in) == 17:
+                yield from self._encode_subgop_pipelined(dev)
+        yield from self.flush()
+
+    def _encode_subgop_pipelined(self, dev):
+        base = self._gop_base
+        order = self._ra_order_derived(base)
+        for (poc, disp, _tid, _is_ref) in order:
+            y, u, v = self._gop_in[disp - base]
+            dev.put_frame(poc, y, u, v)
+        handles = []
+        shadow = self._shadow_dpb()
+        frozen_lists = {}
+        for (poc, disp, tid, is_ref) in order:
+            depth = 1 if disp % 16 == 0 else tid + 1
+            qp = self._ra_qp(depth)
+            qp_y, qp_u, qp_v = self._qp_triplet(qp)
+            # freeze the coding-time ref list STRUCTURE from the shadow DPB
+            # (identical derivation to the _encode_ra_frame call); the
+            # frame-parallel coding pass resolves the recon content later
+            l0, l1 = picman_np.build_ref_lists(
+                shadow, poc, tid, SLICE_B, SLICE_P, SLICE_B,
+                self.sps.max_num_ref_pics, -(10 ** 9))
+            frozen_lists[poc] = ([q["poc"] for q in l0],
+                                 [q["poc"] for q in l1])
+            ref0, ref0b, ref1, ref1b = self._predict_refs(shadow, dev,
+                                                          poc, tid, base)
+            hd = dev.dispatch_bg(poc, qp, qp_y, qp_u, qp_v,
+                                 ref_poc=ref0, ref1_poc=ref1,
+                                 ref0b_poc=ref0b, ref1b_poc=ref1b)
+            handles.append((poc, disp, tid, is_ref, hd, ref0, ref1, qp))
+            picman_np.dpb_mark_and_insert(
+                shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
+        if self.p.aq_mode < 2 and self._frame_workers() > 1:
+            yield from self._code_subgop_parallel(dev, handles, frozen_lists,
+                                                  base)
+            return
+        # cutree-lite (aq_mode 2): collect the whole sub-GOP's analyses up
+        # front and hand each reference frame the MV fields of the frames
+        # predicting from it (xeve_fcst.c:629 blk_tree analog)
+        collected = {}
+        deps: dict[int, list] = {}
+        if self.p.aq_mode >= 2:
+            for (poc, disp, tid, is_ref, hd, r0, r1, _qp) in handles:
+                an = collected.setdefault(poc, dev.collect(hd))
+                if r0 is not None and getattr(an, "mv", None):
+                    deps.setdefault(r0, []).append(an.mv[4])
+                if r1 is not None and getattr(an, "mv1", None):
+                    deps.setdefault(r1, []).append(an.mv1[4])
+        for (poc, disp, tid, is_ref, hd, _r0, _r1, _qp) in handles:
+            an = collected.get(poc) or dev.collect(hd)
+            aq = None
+            if self.p.aq_mode >= 2:
+                y, u, v = self._gop_in[disp - base]
+                aq = self._aq_map(y, u, v, extra_mv_fields=deps.get(poc))
+            bs, rec = self._encode_ra_frame(poc, tid, disp - base, is_ref,
+                                            SLICE_B, analysis_pre=an,
+                                            aq_map=aq)
+            yield bs, rec, disp
+        self._gop_base = base + 16
+        self._gop_in = self._gop_in[-1:]
+
+    def _code_subgop_parallel(self, dev, handles, frozen_lists, base):
+        """Frame-DAG parallel coding of one RA sub-GOP: every frame's
+        closed-loop C pass runs as a task that blocks only on the recon of
+        the frames in its frozen ref lists.  Tasks are submitted in coding
+        order (a topological order of the hierarchy), so FIFO workers
+        cannot deadlock; emission (headers, DPB, stats) stays serial on
+        the main thread in coding order, keeping the bitstream
+        bit-identical to the serial path."""
+        p = self.p
+        if self._code_pool is None:
+            self._code_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=self._frame_workers(),
+                thread_name_prefix="xt-frame")
+        dpb_by_poc = {q["poc"]: q for q in self.dpb}
+        futures = {}
+
+        def resolve(q):
+            if q in dpb_by_poc:
+                return dpb_by_poc[q]
+            return futures[q].result()["entry"]
+
+        def task(poc, disp, tid, is_ref, hd, qp):
+            y, u, v = self._gop_in[disp - base]
+            y = np.asarray(y, np.int32)
+            u = np.asarray(u, np.int32)
+            v = np.asarray(v, np.int32)
+            l0p, l1p = frozen_lists[poc]
+            refp = [resolve(q) for q in l0p]
+            refp1 = [resolve(q) for q in l1p]
+            an = dev.collect(hd)
+            if (refp1 and getattr(an, "mv1", None) is None
+                    and getattr(an, "mv", None) is not None):
+                an.mv1 = {lg: m for lg, m in an.mv.items()}
+            aq_map = self._aq_map(y, u, v)
+            payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
+                self._code_slice(SLICE_B, poc, qp, y, u, v, an, refp, refp1,
+                                 aq_map=aq_map)
+            entry = {
+                "poc": poc, "tid": tid, "ref": is_ref,
+                "list0_poc": refp[0]["poc"] if refp else poc,
+                "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32),
+                                           PAD_L),
+                "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32),
+                                           PAD_L // 2),
+                "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32),
+                                           PAD_L // 2),
+                "map_mv": map_mv,
+            }
+            return {"payload": payload, "bin_count": bin_count,
+                    "rec": (rec_y, rec_u, rec_v), "entry": entry,
+                    "tile_lens": tile_lens, "l0p": l0p, "l1p": l1p}
+
+        # dependency-gated submission: a task is handed to the pool only
+        # once every ref it needs is reconstructed, so workers NEVER block
+        # inside resolve() — a blocked worker would hold a slot and
+        # serialize the whole sub-GOP behind the anchor chain (measured:
+        # wall time == sum of C passes without this)
+        sched_lock = threading.RLock()   # done-callbacks can re-enter
+        submitted = set()
+
+        def _deps(poc):
+            l0p, l1p = frozen_lists[poc]
+            return [q for q in list(l0p) + list(l1p)
+                    if q not in dpb_by_poc]
+
+        def _try_submit():
+            with sched_lock:
+                for (poc, disp, tid, is_ref, hd, _r0, _r1, qp) in handles:
+                    if poc in submitted:
+                        continue
+                    if all(q in futures and futures[q].done()
+                           for q in _deps(poc)):
+                        fu = self._code_pool.submit(task, poc, disp, tid,
+                                                    is_ref, hd, qp)
+                        futures[poc] = fu
+                        submitted.add(poc)
+                        fu.add_done_callback(lambda _f: _try_submit())
+
+        _try_submit()
+        for (poc, disp, tid, is_ref, _hd, _r0, _r1, qp) in handles:
+            while True:
+                with sched_lock:
+                    fu = futures.get(poc)
+                if fu is not None:
+                    break
+                time.sleep(0.0005)
+            r = fu.result()
+            sh = SliceHeader(slice_type=SLICE_B, qp=qp,
+                             qp_u_offset=p.qp_cb_offset,
+                             qp_v_offset=p.qp_cr_offset,
+                             deblocking_filter_on=1 if p.use_deblock else 0)
+            self._sh_tiles(sh, r["tile_lens"])
+            bw = BitWriter()
+            NalHeader(NUT_NONIDR, tid).write(bw)
+            sh.write(bw, NUT_NONIDR, self.sps, self.pps)
+            payload = bw.get_bytes() + r["payload"]
+            payload += self._cabac_zero_words(r["bin_count"], len(payload))
+            out = wrap_nal(payload)
+            rec_y, rec_u, rec_v = r["rec"]
+            if p.use_pic_sign:
+                out += self._signature_sei(rec_y, rec_u, rec_v)
+            picman_np.dpb_mark_and_insert(self.dpb, r["entry"], False)
+            self.pic_cnt += 1
+            self.last_stat = Stat(
+                bytes=len(out), nalu_type=NUT_NONIDR, slice_type=SLICE_B,
+                qp=qp, poc=poc, tid=tid, ref_pocs_l0=list(r["l0p"]),
+                ref_pocs_l1=list(r["l1p"]))
+            yield out, (rec_y, rec_u, rec_v), disp
+        self._gop_base = base + 16
+        self._gop_in = self._gop_in[-1:]
+
+    def _shadow_dpb(self):
+        """Lightweight copy of the DPB metadata for dispatch-ahead ref-list
+        prediction (mirrors what build_ref_lists will see at coding time)."""
+        return [{"poc": q["poc"], "tid": q["tid"],
+                 "ref": q.get("ref", True)} for q in self.dpb]
+
+    def _predict_refs(self, shadow, dev, poc, tid, base):
+        """Predict (ref0, ref0b, ref1, ref1b) pocs for the dispatch-ahead
+        analysis of a RA B frame, from the simulated DPB state — identical
+        list construction to the coding-time build_ref_lists call."""
+        l0, l1 = picman_np.build_ref_lists(
+            shadow, poc, tid, SLICE_B, SLICE_P, SLICE_B,
+            self.sps.max_num_ref_pics, self.last_intra_poc)
+        p0 = [q["poc"] for q in l0 if dev.has_frame(q["poc"])]
+        p1 = [q["poc"] for q in l1 if dev.has_frame(q["poc"])]
+        ref0 = p0[0] if p0 else (base if dev.has_frame(base) else None)
+        ref0b = p0[1] if len(p0) > 1 else None
+        ref1 = p1[0] if p1 else None
+        ref1b = p1[1] if len(p1) > 1 else None
+        return ref0, ref0b, ref1, ref1b
 
     def encode_stream_meshed(self, frames, mesh):
         raise NotImplementedError("the meshed sub-GOP analysis is not ported "
                                   "to torch yet")
+
+    def _ra_qp(self, depth):
+        off_layer, off_model, scale_model = QP_ADAPT_RA16[depth]
+        qp = self.p.qp + off_layer
+        dqp = qp * scale_model + off_model + 0.5
+        qp += int(np.floor(np.clip(dqp, 0.0, 3.0)))
+        return int(np.clip(qp, 0, 51))
+
+    def _encode_ra_frame(self, poc, tid, disp_idx, is_ref, slice_type,
+                         analysis_pre=None, aq_map=None):
+        p = self.p
+        bd = p.codec_bit_depth
+        y, u, v = self._gop_in[disp_idx]
+        y = np.asarray(y, np.int32)
+        u = np.asarray(u, np.int32)
+        v = np.asarray(v, np.int32)
+        if slice_type == SLICE_I:
+            depth = 0
+            self.last_intra_poc = poc
+        elif poc % 16 == 0:
+            depth = 1
+        else:
+            depth = tid + 1
+        qp = self._ra_qp(depth) if p.bframes >= 15 else self._slice_qp(slice_type)
+        qp_y, qp_u, qp_v = self._qp_triplet(qp)
+
+        refp, refp1 = picman_np.build_ref_lists(
+            self.dpb, poc, tid, SLICE_B, SLICE_P, slice_type,
+            self.sps.max_num_ref_pics, -(10 ** 9))
+
+        nut = NUT_IDR if poc == 0 and self.pic_cnt == 0 else NUT_NONIDR
+        out = b""
+        if nut == NUT_IDR:
+            out += self._headers()
+
+        if analysis_pre is not None:
+            an = analysis_pre
+        elif self.analysis_engine == "device":
+            dev = self._device()
+            if not dev.has_frame(poc):
+                dev.put_frame(poc, y, u, v)
+            ref_poc = refp[0]["poc"] if (slice_type != SLICE_I and refp) \
+                else None
+            ref1_poc = refp1[0]["poc"] if (slice_type == SLICE_B and refp1) \
+                else None
+            ref0b_poc = refp[1]["poc"] if (slice_type != SLICE_I
+                                           and len(refp) > 1) else None
+            ref1b_poc = refp1[1]["poc"] if (slice_type == SLICE_B
+                                            and len(refp1) > 1) else None
+            an = dev.collect(dev.dispatch(poc, qp, qp_y, qp_u, qp_v,
+                                          ref_poc=ref_poc,
+                                          ref1_poc=ref1_poc,
+                                          ref0b_poc=ref0b_poc,
+                                          ref1b_poc=ref1b_poc))
+        elif slice_type == SLICE_I:
+            an = self._analyze_intra(y, u, v, qp)
+        else:
+            an = self._analyze_inter(y, u, v, refp, qp, qp_y, qp_u, qp_v, bd,
+                                     refp1=refp1 if slice_type == SLICE_B else None,
+                                     search_range=p.search_range)
+        if (slice_type == SLICE_B and refp1
+                and getattr(an, "mv1", None) is None
+                and getattr(an, "mv", None) is not None):
+            an.mv1 = {lg: m for lg, m in an.mv.items()}
+
+        if aq_map is None:
+            aq_map = self._aq_map(y, u, v)
+        slice_payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
+            self._code_slice(slice_type, poc, qp, y, u, v, an, refp, refp1,
+                             aq_map=aq_map)
+        sh = SliceHeader(slice_type=slice_type, qp=qp,
+                         qp_u_offset=p.qp_cb_offset,
+                         qp_v_offset=p.qp_cr_offset,
+                         deblocking_filter_on=1 if p.use_deblock else 0)
+        self._sh_tiles(sh, tile_lens)
+        bw = BitWriter()
+        NalHeader(nut, tid).write(bw)
+        sh.write(bw, nut, self.sps, self.pps)
+        payload = bw.get_bytes() + slice_payload
+        payload += self._cabac_zero_words(bin_count, len(payload))
+        out += wrap_nal(payload)
+        if p.use_pic_sign:
+            out += self._signature_sei(rec_y, rec_u, rec_v)
+        self._dpb_push(rec_y, rec_u, rec_v, map_mv, poc=poc, tid=tid,
+                       is_ref=is_ref, is_idr=(nut == NUT_IDR),
+                       list0_poc=refp[0]["poc"] if refp else poc)
+        self.pic_cnt += 1
+        self._fill_stat(len(out), nut, slice_type, qp, poc, tid,
+                        refp=refp, refp1=refp1, rec=(rec_y, rec_u, rec_v))
+        return out, (rec_y, rec_u, rec_v)

@@ -16,11 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xeve_tpu.enc.analysis_inter_np import InterAnalysisResult, ME_BLK_LOG2
-
 from ..device import resolve_device
 from ..ops import me_cuda
 from ..tables import _MC_L
+from .analysis_inter_np import InterAnalysisResult, ME_BLK_LOG2
 from .analysis_torch import (_pack, _partition_dp, analyze_frame_torch,
                              to_device)
 

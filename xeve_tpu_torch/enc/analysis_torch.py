@@ -17,12 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xeve_tpu.constants import (QUANT_SCALE, DQUANT_SCALE_B,
-                                MAX_TX_DYNAMIC_RANGE, QUANT_SHIFT,
-                                QUANT_IQUANT_SHIFT)
-from xeve_tpu.enc.analysis_np import AnalysisResult, BITS_SCALE, corrected_leaf
-
+from ..constants import (QUANT_SCALE, DQUANT_SCALE_B, MAX_TX_DYNAMIC_RANGE,
+                         QUANT_SHIFT, QUANT_IQUANT_SHIFT)
 from ..device import resolve_device
+from .analysis_np import AnalysisResult, BITS_SCALE, corrected_leaf
 from ..tables import load_tables
 
 

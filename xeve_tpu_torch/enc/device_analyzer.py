@@ -23,10 +23,11 @@ import threading
 import numpy as np
 import torch
 
-from xeve_tpu.enc.analysis_inter_np import InterAnalysisResult, ME_BLK_LOG2
-from xeve_tpu.enc.analysis_np import corrected_leaf, AnalysisResult
-
 from ..device import resolve_device
+from ..ops import mc_np
+from .analysis_inter_np import (InterAnalysisResult, ME_BLK_LOG2,
+                                analyze_frame_inter)
+from .analysis_np import AnalysisResult, analyze_frame, corrected_leaf
 from .analysis_torch import _level_cost_impl, level_params
 from .analysis_inter_torch import (_cur_blocks, _edge_pad, _mv_for_level,
                                    _mvd_bits, _wrap)
@@ -489,9 +490,6 @@ class DeviceAnalyzer:
     def _host_fallback(self, hd: _Handle):
         """Device unrecoverable: compute this frame's analysis with the
         numpy oracle from the host-side original ring."""
-        from xeve_tpu.enc.analysis_np import analyze_frame
-        from xeve_tpu.enc.analysis_inter_np import analyze_frame_inter
-        from xeve_tpu.ops import mc_np
         poc, qp, qp_y, qp_u, qp_v, r0, r1, r0b, r1b, _ = hd.args
         y, u, v = [np.asarray(p, np.int32) for p in self.host_ring[poc]]
         if r0 is None:

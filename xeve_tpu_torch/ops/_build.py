@@ -28,19 +28,29 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
+def compile_cu(src: str, out: str, extra=()) -> str:
+    """nvcc one .cu source into the shared library `out` (written under a
+    temporary name, then renamed into place); returns nvcc's stderr."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    r = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                        *extra, "-o", tmp, src],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
+    os.replace(tmp, out)
+    return r.stderr
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu into lib<name>.so if it is missing or older
     than its source; returns the library's path."""
     src = os.path.join(CSRC, name + ".cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", tmp, src], check=True)
-    os.replace(tmp, out)
+    if not (os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(src)):
+        compile_cu(src, out)
     return out
 
 

@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from xeve_tpu.constants import TM, SCAN
+from .constants import TM, SCAN
 
 # scan rank matrices: rank of raster position (v,u) in zigzag order
 # (analysis_jax.py:51)
