@@ -15,8 +15,9 @@ Phases, one line each; any failure raises and exits non-zero:
   4. analysis: intra and inter analysis at 1920x1088 on the card against
      the same calls on the CPU (MV maps identical; modes and splits agree
      on >= 0.99 of the blocks of each level);
-  5. LD-P encode, 3 frames at 1920x1088, QP 32, preset medium;
-  6. RA GOP16 encode, 17 frames at 1920x1088;
+  5. LD-P encode, 3 frames at 1920x1088, QP 32, preset medium (2 ME
+     kernel launches);
+  6. RA GOP16 encode, 17 frames at 1920x1088 (31 launches);
   7. round trip: LD-P and RA streams at 128x64 coded on the card decode
      bit-exactly through the Python conformance decoder;
 then the fused device analyzer (analysis="device", bench.py's engine),
@@ -32,11 +33,30 @@ which runs no hand-written kernel:
      and RA GOP16 (17 frames, pipelined sub-GOP, frame-parallel C pass);
      each asserts one dispatch per frame and no device failure;
  13. round trip: device-engine LD-P and RA streams at 128x64 coded on the
-     card decode bit-exactly.
-The ME kernel's launch count is reset before phase 5 and read after phase
-6 (the device engine does not launch it).  Every phase runs on the port's
-own modules: neither jax nor the JAX package xeve_tpu is imported.  The
-last two lines are the kernel record and {"ok": true, "device": ...}.
+     card decode bit-exactly;
+then the Main profile (EIPD, CM_INIT, ADCC, IQT, ATS, HTDF, ADDB; BTT
+where it is auto-on), at 1920x1088, QP 32, preset medium:
+ 14. 33-mode EIPD analysis on the card against the same call on the CPU
+     (modes and splits agree on >= 0.99 of the blocks of each level);
+ 15. Main I dispatch+collect (median of 5, host clock), the dispatch's
+     enqueue time with CUDA's sync debug mode set to error (the dispatch
+     makes no synchronisation), CUDA-event ms per level, and
+     torch.profiler's device busy time, operation count and hottest ops
+     of one Main I analysis;
+ 16. Main AI, 2 frames, "jax" engine through encode_stream (bench.py's
+     1080p_ai_main), analysis and C-pass time beside the wall;
+ 17. Main RA GOP16, 17 frames, "jax" engine (bench.py's 1080p_ra_main):
+     the B frames launch the ME kernel, 31 times;
+ 18. round trip: Main AI, LD-P and RA streams ("jax" engine) and a
+     device-engine Main RA stream at 128x64 coded on the card decode
+     bit-exactly.
+The ME kernel's launch count is set to 0 before each of phases 5, 6, 16
+and 17 and read after it (2, 31, 0 and 31 launches; the device engine
+and Main AI do not launch it); the record sums phases 5, 6 and 17.
+Every phase runs on the port's own modules: neither jax nor the JAX
+package xeve_tpu is imported.
+The last three lines are the run's wall time, the kernel record and
+{"ok": true, "device": ...}.
 """
 import json
 import os
@@ -205,49 +225,34 @@ def phase_analysis():
           flush=True)
 
 
-def encode(cls, params, frames, device):
-    enc = cls(params, device=device)
-    t0 = time.perf_counter()
-    out = list(enc.encode_stream(iter(frames)))
-    dt = time.perf_counter() - t0
-    return enc, out, dt
-
-
-def phase_encode(label, cls, params, frames, me_cuda):
-    import numpy as np
-    before = me_cuda.LAUNCHES
-    enc, out, dt = encode(cls, params, frames, "cuda")
-    n = len(out)
-    assert n == len(frames), f"{label}: {n} outputs for {len(frames)} frames"
-    assert enc.analysis_calls == n, \
-        f"{label}: {enc.analysis_calls} analyses for {n} frames"
-    assert me_cuda.LAUNCHES > before, f"{label}: ME kernel never launched"
-    nbytes = sum(len(bs) for bs, _rec, _poc in out)
-    ps = [_psnr_y(frames[poc][0], rec[0]) for _bs, rec, poc in out]
-    assert all(np.isfinite(p) and p > 30.0 for p in ps), f"{label}: {ps}"
-    print(f"{label}: {n} frames {params.w}x{params.h} in {dt:.3f} s = "
-          f"{n / dt:.4f} fps, {nbytes * 8 * 30.0 / n / 1000.0:.1f} kbps at "
-          f"30 fps, PSNR-Y {float(np.mean(ps)):.3f} dB, kernel launches "
-          f"{me_cuda.LAUNCHES - before}", flush=True)
-
-
-def phase_round_trip(Encoder, GopEncoder, EncoderParams):
+def _assert_decodes(label, out, n, profile=0):
+    """The stream of `out` ((bs, rec, poc) per frame) decodes to its n
+    reconstructions bit-exactly through the port's decoder."""
     import numpy as np
     from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
-    frames = _frames(128, 64, 17)
-    for label, cls, kw, fr in (
-            ("LD-P", Encoder, dict(keyint=0), frames[:4]),
-            ("RA", GopEncoder, dict(keyint=0, bframes=15), frames)):
-        _enc, out, _dt = encode(cls, EncoderParams(w=128, h=64, qp=QP, **kw),
-                                fr, "cuda")
-        recs = {poc: rec for _bs, rec, poc in out}
-        dec = BaselineIntraDecoder().decode(b"".join(b for b, _r, _p in out))
-        assert len(dec) == len(fr), f"{label}: decoded {len(dec)} frames"
-        for f in dec:
-            for a, b in zip((f.y, f.u, f.v), recs[f.poc]):
-                assert np.array_equal(a, b), f"{label} poc {f.poc} differs"
-    print("phase 7 round trip: LD-P (4) and RA (17) at 128x64 decode "
-          "bit-exactly", flush=True)
+    recs = {poc: rec for _bs, rec, poc in out}
+    dec = BaselineIntraDecoder()
+    frames = dec.decode(b"".join(b for b, _r, _p in out))
+    assert len(frames) == n, f"{label}: decoded {len(frames)} frames"
+    assert dec.sps.profile_idc == profile, f"{label}: profile"
+    for f in frames:
+        for a, b in zip((f.y, f.u, f.v), recs[f.poc]):
+            assert np.array_equal(a, b), f"{label} poc {f.poc} differs"
+
+
+def phase_round_trip(phase, cases, EncoderParams):
+    """Streams at 128x64 coded on the card decode bit-exactly; cases are
+    (label, encoder class, parameters, frames, analysis engine)."""
+    for label, cls, kw, fr, engine in cases:
+        enc = cls(EncoderParams(w=128, h=64, qp=QP, **kw), analysis=engine,
+                  device="cuda")
+        out = list(enc.encode_stream(iter(fr)))
+        if engine == "device":
+            assert enc._device().failures == 0, f"{label}: device failures"
+        _assert_decodes(label, out, len(fr), kw.get("profile", 0))
+    print(f"phase {phase} round trip: "
+          + ", ".join(f"{c[0]} ({len(c[3])})" for c in cases)
+          + " at 128x64 decode bit-exactly", flush=True)
 
 
 def _sections(vec, h, w):
@@ -310,11 +315,49 @@ def phase_fused(dan):
           flush=True)
 
 
-def phase_dispatch(dan):
-    """Dispatch+collect per frame kind, and one profiled B dispatch."""
+def _device_profile(fn):
+    """One synchronised call of fn under torch.profiler: its wall, the
+    union of its device intervals (busy), their count, and the hottest
+    kernels and aten ops, as one line of text.  Fails if the trace holds
+    no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert evs, "no device time in the profiled call"
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, None
+    for a, b in spans:                      # union of device intervals, us
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    ops = sorted(((e.key, e.self_device_time_total)
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])[:4]
+    return (f"wall {wall:.1f} ms, device busy {busy / 1e3:.2f} ms over "
+            f"{len(evs)} device operations (idle share "
+            f"{1.0 - busy / 1e3 / wall:.3f}); hottest kernels: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top)
+            + "; hottest ops (self device time): "
+            + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in ops))
+
+
+def phase_dispatch(dan):
+    """Dispatch+collect per frame kind, and one profiled B dispatch."""
+    import torch
     from xeve_tpu_torch.constants import chroma_qp_dynamic
     dev = dan.DeviceAnalyzer(W, H, 10, search_range=16, device="cuda")
     for t, f in enumerate(_frames(W, H, 3)):
@@ -333,39 +376,13 @@ def phase_dispatch(dan):
             dev.collect(dev.dispatch(1, *qps, **kw))
             ts.append((time.perf_counter() - t0) * 1e3)
         times[name] = sorted(ts)[2]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dev.collect(dev.dispatch(1, *qps, **kinds["B"]))
-        wall = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, end = 0.0, None
-    for a, b in spans:                      # union of device intervals, us
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    by_name = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    ops = sorted(((e.key, e.self_device_time_total)
-                  for e in prof.key_averages() if e.key.startswith("aten::")),
-                 key=lambda kv: -kv[1])[:4]
-    assert evs and dev.failures == 0, "no device time in the B dispatch"
+    prof = _device_profile(
+        lambda: dev.collect(dev.dispatch(1, *qps, **kinds["B"])))
+    assert dev.failures == 0, "device failure in the profiled B dispatch"
     print(f"phase 9 dispatch: dispatch+collect at {W}x{H} on the card: I "
           f"{times['I']:.1f} ms, P {times['P']:.1f} ms, B {times['B']:.1f} "
           f"ms (median of 5, host clock, synchronised); one profiled B: "
-          f"wall {wall:.1f} ms, device busy {busy / 1e3:.2f} ms over "
-          f"{len(evs)} device operations (idle share "
-          f"{1.0 - busy / 1e3 / wall:.3f}); hottest kernels: "
-          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top)
-          + "; hottest ops (self device time): "
-          + "; ".join(f"{n} {t / 1e3:.2f} ms" for n, t in ops)
+          + prof
           + "; stages of one B (CUDA events, launch gaps included): "
           + ", ".join(f"{n} {t:.2f} ms" for n, t in _b_stages(dan, qps)),
           flush=True)
@@ -451,19 +468,11 @@ def phase_device_encode(label, cls, params, frames, **kw):
     enc = cls(params, analysis="device", device="cuda")
     # time every P/B-slice C pass (frame-parallel ones run on worker
     # threads; the AI frame-parallel pass does not go through _code_slice)
-    spans = []
-    code_slice = enc._code_slice
-
-    def timed(*a, **k):
-        t = time.perf_counter()
-        r = code_slice(*a, **k)
-        spans.append((t, time.perf_counter()))
-        return r
-
-    enc._code_slice = timed
-    t0 = time.perf_counter()
-    out = list(enc.encode_stream(iter(frames), **kw))
-    t1 = time.perf_counter()
+    with _Spans(enc, "_code_slice") as cs:
+        t0 = time.perf_counter()
+        out = list(enc.encode_stream(iter(frames), **kw))
+        t1 = time.perf_counter()
+    spans = cs.spans
     dt = t1 - t0
     dev = enc._device()
     n = len(out)
@@ -483,29 +492,154 @@ def phase_device_encode(label, cls, params, frames, **kw):
              else ""), flush=True)
 
 
-def phase_device_round_trip(Encoder, GopEncoder, EncoderParams):
+def _main_qps():
+    from xeve_tpu_torch.constants import chroma_qp_dynamic
+    qc = chroma_qp_dynamic(QP, 1) + 12          # Main: IQT chroma table
+    return QP, QP + 12, qc, qc
+
+
+def phase_main_analysis(amt):
+    """Card against CPU, the 33-mode EIPD analysis of one 1080p frame."""
     import numpy as np
-    from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
-    frames = _frames(128, 64, 18)
-    for label, cls, kw, fr in (
-            ("LD-P", Encoder, dict(keyint=0), frames[:5]),
-            ("RA", GopEncoder, dict(keyint=0, bframes=15), frames)):
-        enc = cls(EncoderParams(w=128, h=64, qp=QP, **kw),
-                  analysis="device", device="cuda")
-        out = list(enc.encode_stream(iter(fr)))
-        assert enc._device().failures == 0, f"{label}: device failures"
-        recs = {poc: rec for _bs, rec, poc in out}
-        dec = BaselineIntraDecoder().decode(b"".join(b for b, _r, _p in out))
-        assert len(dec) == len(fr), f"{label}: decoded {len(dec)} frames"
-        for f in dec:
-            for a, b in zip((f.y, f.u, f.v), recs[f.poc]):
-                assert np.array_equal(a, b), f"{label} poc {f.poc} differs"
-    print("phase 13 round trip: device-engine LD-P (5) and RA (18) at "
-          "128x64 decode bit-exactly", flush=True)
+    y, u, v = (np.asarray(p, np.int32) for p in _frames(W, H, 2)[1])
+    t0 = time.perf_counter()
+    a_gpu = amt.analyze_frame_main_torch(y, u, v, *_main_qps(), 10,
+                                         device="cuda")
+    t1 = time.perf_counter()
+    a_cpu = amt.analyze_frame_main_torch(y, u, v, *_main_qps(), 10,
+                                         device="cpu")
+    t2 = time.perf_counter()
+    worst = []
+    for lg in range(2, 7):
+        m = float((a_gpu.mode[lg] == a_cpu.mode[lg]).mean())
+        s = float((a_gpu.split[lg] == a_cpu.split[lg]).mean())
+        worst.append(f"lg{lg} {min(m, s):.5f}")
+        assert m >= AGREE_MIN and s >= AGREE_MIN, \
+            f"Main level {lg}: mode {m:.5f} split {s:.5f}"
+    assert a_gpu.eipd_modes and max(int(a_gpu.mode[lg].max())
+                                    for lg in range(2, 7)) > 4
+    print(f"phase 14 Main analysis: card vs CPU at {W}x{H}, lowest "
+          f"mode/split agreement per level {', '.join(worst)} (>= "
+          f"{AGREE_MIN}); first call on the card {t1 - t0:.2f} s "
+          f"(weights built and uploaded), CPU {t2 - t1:.2f} s", flush=True)
+
+
+def phase_main_dispatch(amt):
+    """Main I dispatch+collect times, the dispatch's enqueue under CUDA's
+    sync debug mode, per-level CUDA-event times, one profiled analysis."""
+    import numpy as np
+    import torch
+    y, u, v = (np.asarray(p, np.int32) for p in _frames(W, H, 2)[1])
+    qps = _main_qps()
+
+    def one():
+        return amt.collect_main_torch(
+            amt.dispatch_main_torch(y, u, v, *qps, 10, device="cuda"))
+
+    one()                                                 # warm
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    # the dispatch only enqueues: a synchronising call in it raises here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        hd = amt.dispatch_main_torch(y, u, v, *qps, 10, device="cuda")
+        enq = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    amt.collect_main_torch(hd)
+    wait = (time.perf_counter() - t0) * 1e3
+    yt, ut, vt = (torch.as_tensor(p, dtype=torch.float32, device="cuda")
+                  for p in (y, u, v))
+    levels = []
+    for lg in range(2, 7):
+        prm = torch.as_tensor(amt.level_params_main(*qps, 10, lg),
+                              device="cuda")
+        levels.append((lg, _cuda_ms(
+            lambda: amt._level_cost_main(yt, ut, vt, prm, 10, lg), 3)))
+    prof = _device_profile(one)
+    print(f"phase 15 Main dispatch: Main I dispatch+collect at {W}x{H}: "
+          f"{sorted(ts)[2]:.1f} ms (median of 5, host clock, synchronised);"
+          f" dispatch enqueue {enq:.1f} ms with sync debug mode error, then "
+          f"collect {wait:.1f} ms; per level (CUDA events): "
+          + ", ".join(f"lg{lg} {ms:.2f} ms" for lg, ms in levels)
+          + "; one profiled Main I: " + prof, flush=True)
+
+
+class _Spans:
+    """Host-clock intervals of every call of obj.name while in use."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.spans = obj, name, []
+
+    def __enter__(self):
+        fn = self.real = getattr(self.obj, self.name)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.spans.append((t, time.perf_counter()))
+
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
+
+    def total(self):
+        return sum(b - a for a, b in self.spans)
+
+
+def phase_encode(label, cls, params, frames, me_cuda, launches):
+    """An encode on the "jax" engine: fps, rate and PSNR-Y, analyses and
+    ME kernel launches (the count is set to 0 first; the launches are
+    returned), and where the wall went (analysis, or the dispatch and
+    collect of a dispatched one, and the C pass, host clock)."""
+    import numpy as np
+    from xeve_tpu_torch import api
+    enc = cls(params, device="cuda")
+    me_cuda.LAUNCHES = 0
+    with _Spans(api, "dispatch_main_torch") as s_dis, \
+            _Spans(api, "collect_main_torch") as s_col, \
+            _Spans(api, "encode_intra_frame_native") as s_ci, \
+            _Spans(enc, "_analyze_intra") as s_ai, \
+            _Spans(enc, "_analyze_inter") as s_ap, \
+            _Spans(enc, "_code_slice") as s_cs:
+        t0 = time.perf_counter()
+        out = list(enc.encode_stream(iter(frames)))
+        dt = time.perf_counter() - t0
+    n_launch = me_cuda.LAUNCHES
+    n = len(out)
+    assert n == len(frames), f"{label}: {n} outputs for {len(frames)} frames"
+    assert enc.analysis_calls == n, \
+        f"{label}: {enc.analysis_calls} analyses for {n} frames"
+    assert n_launch == launches, \
+        f"{label}: {n_launch} ME kernel launches, expected {launches}"
+    nbytes = sum(len(bs) for bs, _rec, _poc in out)
+    ps = [_psnr_y(frames[poc][0], rec[0]) for _bs, rec, poc in out]
+    assert all(np.isfinite(p) and p > 30.0 for p in ps), f"{label}: {ps}"
+    ana = sum(t.total() for t in (s_dis, s_col, s_ai, s_ap))
+    cpass = s_ci.total() + s_cs.total()
+    print(f"{label}: {n} frames {params.w}x{params.h} in {dt:.3f} s = "
+          f"{n / dt:.4f} fps, {nbytes * 8 * 30.0 / n / 1000.0:.1f} kbps at "
+          f"30 fps, PSNR-Y {float(np.mean(ps)):.3f} dB, analyses "
+          f"{enc.analysis_calls}, ME kernel launches {n_launch}, btt "
+          f"{enc.p.btt}; host clock: analysis {ana:.3f} s, "
+          f"C pass {cpass:.3f} s of the {dt:.3f} s wall", flush=True)
+    return n_launch
 
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
@@ -515,6 +649,7 @@ def main():
     from xeve_tpu_torch.native.build import get_lib as get_native_lib
     from xeve_tpu_torch.params import EncoderParams
     from xeve_tpu_torch.api import Encoder, GopEncoder
+    from xeve_tpu_torch.enc import analysis_main_torch as amt
     from xeve_tpu_torch.enc import device_analyzer as dan
     from xeve_tpu_torch.enc.me_torch import integer_me_plain
     from xeve_tpu_torch.ops import _build, me_cuda
@@ -540,17 +675,20 @@ def main():
     phase_analysis()
 
     frames = _frames(W, H, 17)
-    me_cuda.LAUNCHES = 0
-    phase_encode("phase 5 LD-P", Encoder,
-                 EncoderParams(w=W, h=H, qp=QP, keyint=0, preset="medium"),
-                 frames[:3], me_cuda)
-    phase_encode("phase 6 RA", GopEncoder,
-                 EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
-                               preset="medium"),
-                 frames, me_cuda)
-    launches = me_cuda.LAUNCHES
+    launches = phase_encode(
+        "phase 5 LD-P", Encoder,
+        EncoderParams(w=W, h=H, qp=QP, keyint=0, preset="medium"),
+        frames[:3], me_cuda, 2)
+    launches += phase_encode(
+        "phase 6 RA", GopEncoder,
+        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
+                      preset="medium"), frames, me_cuda, 31)
 
-    phase_round_trip(Encoder, GopEncoder, EncoderParams)
+    small = _frames(128, 64, 18)
+    phase_round_trip(7, (
+        ("LD-P", Encoder, dict(keyint=0), small[:4], "jax"),
+        ("RA", GopEncoder, dict(keyint=0, bframes=15), small[:17], "jax")),
+        EncoderParams)
 
     phase_fused(dan)
     phase_dispatch(dan)
@@ -565,10 +703,34 @@ def main():
                         EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
                                       preset="medium"), frames)
     assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
-    phase_device_round_trip(Encoder, GopEncoder, EncoderParams)
+    phase_round_trip(13, (
+        ("device-engine LD-P", Encoder, dict(keyint=0), small[:5],
+         "device"),
+        ("device-engine RA", GopEncoder, dict(keyint=0, bframes=15), small,
+         "device")), EncoderParams)
+
+    phase_main_analysis(amt)
+    phase_main_dispatch(amt)
+    phase_encode("phase 16 Main AI", Encoder,
+                 EncoderParams(w=W, h=H, qp=QP, keyint=1, profile=1,
+                               preset="medium"), frames[:2], me_cuda, 0)
+    launches += phase_encode(
+        "phase 17 Main RA", GopEncoder,
+        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15, profile=1,
+                      preset="medium"), frames, me_cuda, 31)
+    phase_round_trip(18, (
+        ("Main AI", Encoder, dict(keyint=1, profile=1), small[:3], "jax"),
+        ("Main LD-P", Encoder, dict(keyint=0, profile=1), small[:4], "jax"),
+        ("Main RA", GopEncoder, dict(keyint=0, bframes=15, profile=1),
+         small[:17], "jax"),
+        ("device-engine Main RA", GopEncoder,
+         dict(keyint=0, bframes=15, profile=1), small, "device")),
+        EncoderParams)
     assert not any(m.split(".")[0] in ("jax", "xeve_tpu")
                    for m in sys.modules), "the port imported jax or xeve_tpu"
 
+    print(f"wall time of the run: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "me_full_search", "route": "cuda",
         "source": "xeve_tpu_torch/csrc/me_full_search.cu",

@@ -90,7 +90,6 @@ def test_intra_frames_use_port_analysis(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(profile=1), NotImplementedError),
     (dict(rc_type="abr", bitrate_kbps=500.0), NotImplementedError),
     (dict(profile=1, tool_eipd=0, tool_dra=1), NotImplementedError),
 ])

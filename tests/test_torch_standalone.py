@@ -2,7 +2,8 @@
 `xeve_tpu`, its copies of the JAX package's host modules equal their
 originals, its native C coding pass is built from byte-identical sources
 under a name of its own, and its own decoder decodes the golden Baseline
-streams and its own streams bit-exactly."""
+and Main streams (every Main tool, DRA and tiles included) and its own
+streams bit-exactly."""
 import ast
 import dataclasses
 import importlib
@@ -50,18 +51,21 @@ from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.params import EncoderParams
 
 engine, gop = sys.argv[1], sys.argv[2]
-n = 17 if gop == "ra" else 3
+n = 17 if gop.endswith("ra") else 3
 frames = []
 for t in range(n):
     y, u, v = gen_frame(64, 64, t)
     frames.append((y.astype(np.int16) << 2, u.astype(np.int16) << 2,
                    v.astype(np.int16) << 2))
-kw = dict(bframes=15) if gop == "ra" else {}
-enc = api.GopEncoder(EncoderParams(w=64, h=64, qp=32, keyint=0, **kw),
+kw = dict(bframes=15) if gop.endswith("ra") else {}
+if gop.startswith("main"):
+    kw["profile"] = 1
+keyint = 1 if gop == "main_ai" else 0
+enc = api.GopEncoder(EncoderParams(w=64, h=64, qp=32, keyint=keyint, **kw),
                      analysis=engine, device="cpu")
 out = list(enc.encode_stream(iter(frames)))
 assert len(out) == n, len(out)
-if engine == "jax":
+if engine == "jax" or gop == "main_ai":
     assert enc.analysis_calls == n
 else:
     assert enc._device().dispatches == n and enc._device().failures == 0
@@ -79,11 +83,13 @@ print("ok", sum(len(bs) for bs, _r, _p in out))
 
 
 @pytest.mark.parametrize("engine", ["jax", "device"])
-@pytest.mark.parametrize("gop", ["ldp", "ra"])
+@pytest.mark.parametrize("gop", ["ldp", "ra", "main_ai", "main_ra"])
 def test_port_encodes_and_decodes_without_jax_package(engine, gop):
     """A fresh interpreter in which neither jax nor xeve_tpu can be
-    imported encodes LD-P and RA GOP16 with both engines and decodes its
-    own stream bit-exactly through the port's decoder."""
+    imported encodes Baseline LD-P and RA GOP16, Main AI and Main RA GOP16
+    with both engines and decodes its own stream bit-exactly through the
+    port's decoder.  Main AI analyses every frame with the EIPD analysis
+    on either engine (analysis_calls)."""
     # one intra-op thread, as in the test workers (test_torch_encode.py)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", SCRIPT, engine, gop], cwd=ROOT,
@@ -135,7 +141,14 @@ VERBATIM = ["params.py", "hls.py", "io/bits.py",
             "enc/analysis_np.py", "enc/syntax.py", "enc/frame_native.py",
             "enc/intra_frame_native.py", "enc/aq.py", "ops/mc_np.py",
             "ops/picman_np.py", "ops/motion_np.py", "ops/intra_main_np.py",
-            "ops/deblock_np.py", "native/xt_core.c", "native/tables.h"]
+            "ops/deblock_np.py", "native/xt_core.c", "native/tables.h",
+            # the Main profile's host modules
+            "constants_ats.py", "entropy/ctx_init.py", "entropy/adcc.py",
+            "ops/htdf_np.py", "ops/addb_np.py", "ops/dra_np.py",
+            "ops/intra_main_batch.py", "enc/analysis_main_np.py",
+            # restored in full once the Main modules above were copied
+            "entropy/sbac.py", "ops/reference_kernels.py",
+            "dec/decoder.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -255,30 +268,67 @@ def test_two_native_libraries_side_by_side():
 # The port's decoder on the golden streams
 # ---------------------------------------------------------------------------
 
+# (name, width, height, frames, every picture carries a signature SEI)
 GOLDEN = [
-    ("tiny_ai_q32", 64, 64, 1),     # I
-    ("s96_ai_q27", 96, 80, 2),
-    ("cif_ai_q32", 352, 288, 2),
-    ("s96_zl", 96, 80, 2),          # LD-P
-    ("s96_zl6", 96, 80, 6),
-    ("s96_ldp_q30", 96, 80, 2),     # LD-B
-    ("s96_ldp6", 96, 80, 6),
-    ("s96_ra", 96, 80, 20),         # RA GOP16, recon in display order
-    ("s96_mm_ai", 96, 80, 2),       # Main syntax, tools off, SEI per picture
-    ("s96_mm_zl", 96, 80, 6),
-    ("s96_mm_ra", 96, 80, 20),
+    ("tiny_ai_q32", 64, 64, 1, False),     # I
+    ("s96_ai_q27", 96, 80, 2, False),
+    ("cif_ai_q32", 352, 288, 2, False),
+    ("s96_zl", 96, 80, 2, False),          # LD-P
+    ("s96_zl6", 96, 80, 6, False),
+    ("s96_ldp_q30", 96, 80, 2, False),     # LD-B
+    ("s96_ldp6", 96, 80, 6, False),
+    ("s96_ra", 96, 80, 20, False),         # RA GOP16, recon in display order
+    ("s96_mm_ai", 96, 80, 2, True),        # Main syntax, tools off
+    ("s96_mm_zl", 96, 80, 6, True),
+    ("s96_mm_ra", 96, 80, 20, True),
+    # Main tools (test_conformance.py), each on top of the ones before
+    ("s96_eipd_ai", 96, 80, 2, True),
+    ("s96_eipd_zl", 96, 80, 6, True),
+    ("s96_eipd_ra", 96, 80, 20, True),
+    ("cif_eipd_ai", 352, 288, 2, True),
+    ("s96_cmi_ai", 96, 80, 2, True),
+    ("s96_cmi_zl", 96, 80, 6, True),
+    ("s96_cmi_ra", 96, 80, 20, True),
+    ("s96_adcc_ai", 96, 80, 2, True),
+    ("s96_adcc_zl", 96, 80, 6, True),
+    ("s96_adcc_ra", 96, 80, 20, True),
+    ("cif_adcc_ai", 352, 288, 2, True),
+    ("s96_iqt_ai", 96, 80, 2, True),
+    ("s96_iqt_zl", 96, 80, 6, True),
+    ("s96_iqt_ra", 96, 80, 20, True),
+    ("s96_ats_ai", 96, 80, 2, True),
+    ("s96_ats_zl", 96, 80, 6, True),
+    ("s96_ats_ra", 96, 80, 20, True),
+    ("s96_htdf_ai", 96, 80, 2, True),
+    ("s96_htdf_zl", 96, 80, 6, True),
+    ("s96_htdf_ra", 96, 80, 20, True),
+    ("s96_btt_ai", 96, 80, 2, False),      # BTT split tree
+    ("s96_bttsuco_ai", 96, 80, 2, False),  # + SUCO
+    ("cif_bttsuco_ai", 352, 288, 2, False),  # 128 CTU
+    ("s96_btt_ld", 96, 80, 2, False),
+    ("s96_btt_ra", 96, 80, 18, False),
+    ("s96_addb_ai", 96, 80, 3, False),     # ADDB (test_addb.py)
+    ("s96_addb_ld", 96, 80, 6, False),
+    ("s96_addb_ra", 96, 80, 24, False),
+    ("s96_fullset_ra", 96, 80, 24, False),  # the whole default toolset
+    ("s96_dra_ai", 96, 80, 4, False),      # DRA: outputs backward-mapped
+    ("s96_dra_ld", 96, 80, 12, False),
+    ("t176_2t_ai", 176, 144, 2, True),     # tiles (test_tiles.py)
+    ("t176_4t_ai", 176, 144, 2, True),
+    ("t176_2t_zl", 176, 144, 4, True),
 ]
 
 
-@pytest.mark.parametrize("name,w,h,n", GOLDEN)
-def test_port_decoder_decodes_golden_streams(name, w, h, n):
-    """Twin of test_conformance.py: bit-exact recon of the reference
-    encoder's streams, and every signature SEI checked."""
+@pytest.mark.parametrize("name,w,h,n,sigs", GOLDEN)
+def test_port_decoder_decodes_golden_streams(name, w, h, n, sigs):
+    """Twin of test_conformance.py, test_addb.py, test_dra.py and
+    test_tiles.py: bit-exact recon of the reference encoder's streams in
+    display order, and every signature SEI checked."""
     dec = BaselineIntraDecoder()
     stream = open(os.path.join(DATA, f"{name}.evc"), "rb").read()
     frames = sorted(dec.decode(stream), key=lambda f: f.poc)
     assert len(frames) == n
-    if name.startswith("s96_mm"):
+    if sigs:
         assert dec.signatures_checked == n
     for i, f in enumerate(frames):
         gy, gu, gv = load_rec10(os.path.join(DATA, f"{name}_rec.yuv"), w, h,
@@ -296,14 +346,6 @@ def test_port_decoder_checks_signature_sei():
     d = BaselineIntraDecoder()
     f, = d.decode(bs)
     assert d.signatures_checked == 1 and np.array_equal(f.y, rec[0])
-
-
-@pytest.mark.parametrize("name", ["s96_adcc_ai", "s96_htdf_ai",
-                                  "s96_addb_ai", "s96_dra_ai"])
-def test_port_decoder_refuses_unported_main_tools(name):
-    stream = open(os.path.join(DATA, f"{name}.evc"), "rb").read()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BaselineIntraDecoder().decode(stream)
 
 
 def test_port_modules_import_by_name():

@@ -10,15 +10,22 @@ explicit device.  Two analysis engines:
   loop), RA pipelines each sub-GOP into the frame-parallel C pass.
   `_device().dispatches` counts the frames it analysed.
 - analysis="jax" (default): the JAX engine's per-frame analysis in torch:
-  I slices through enc/analysis_torch, P and B slices through
+  I slices through enc/analysis_torch (Baseline) or the 33-mode EIPD
+  analysis enc/analysis_main_torch (Main), P and B slices through
   enc/analysis_inter_torch, whose integer ME is the CUDA kernel
   csrc/me_full_search.cu on the card.  `analysis_calls` counts the frames
   this engine analysed.
 
+Main profile (profile=1, the default toolset EIPD, CM_INIT, ADCC, IQT,
+ATS, HTDF, ADDB, and BTT where `btt` is auto-on) runs on both engines:
+its I slices take the EIPD analysis (Main AI streams dispatch `ahead`
+frames of it), its P and B slices the engine's inter analysis.
+
 The closed-loop coding pass is the native C library (native/xt_core.c).
-Not ported yet, and refused with NotImplementedError: the Main-profile
-EIPD analysis, rate control (rc_type != "cq"), DRA, the numpy coding pass
-(coder="python"), the batched all-intra `encode_frames` and the meshed
+Not ported yet, and refused with NotImplementedError: rate control
+(rc_type != "cq"), encoder-side DRA (tool_dra; the decoder decodes DRA
+streams), the numpy coding passes (coder="python": FramePass and the Main
+MainIntraFramePass), the batched all-intra `encode_frames` and the meshed
 sub-GOP analysis `encode_stream_meshed`.
 """
 from __future__ import annotations
@@ -38,6 +45,8 @@ from .constants import (NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS, NUT_SEI,
                         chroma_qp_dynamic)
 from .device import resolve_device
 from .enc.analysis_inter_torch import analyze_frame_inter_torch
+from .enc.analysis_main_torch import (analyze_frame_main_torch,
+                                      collect_main_torch, dispatch_main_torch)
 from .enc.analysis_torch import analyze_frame_torch
 from .enc.device_analyzer import DeviceAnalyzer
 from .enc.frame_native import encode_frame_native
@@ -69,7 +78,8 @@ class Stat:
 
 
 class Encoder:
-    """EVC Baseline encoder (AI / low-delay / RA via GopEncoder)."""
+    """EVC Baseline and Main encoder (AI / low-delay / RA via
+    GopEncoder)."""
 
     def __init__(self, params: EncoderParams, analysis: str = "jax",
                  coder: str = "native", device="cuda"):
@@ -82,9 +92,6 @@ class Encoder:
             raise ValueError(f"unknown coding pass {coder!r}")
         self.p = params.validate()
         p = self.p
-        if p.tool_eipd:
-            raise NotImplementedError("Main-profile EIPD analysis is not "
-                                      "ported to torch yet")
         if p.rc_type != "cq":
             raise NotImplementedError(f"rate control {p.rc_type!r} is not "
                                       "ported to torch yet")
@@ -311,7 +318,7 @@ class Encoder:
         zc = np.zeros((p.h_aligned // 2, p.w_aligned // 2), np.int16)
         dev = None
         base = -(1 << 20)
-        if self.analysis_engine == "device":
+        if self.analysis_engine == "device" and not p.tool_eipd:
             dev = self._device()
             for i in range(3):
                 dev.put_frame(base + i, z, zc, zc)
@@ -334,9 +341,10 @@ class Encoder:
             jobs = [(warm_dev, (s,)) for s in sigs]
         else:
             def warm_intra():
-                analyze_frame_torch(z, zc, zc, qp, qp_y, qp_u, qp_v, bd,
-                                    min_log2=p.min_cu_log2,
-                                    device=self.device)
+                analyze = analyze_frame_main_torch if p.tool_eipd \
+                    else analyze_frame_torch
+                analyze(z, zc, zc, qp, qp_y, qp_u, qp_v, bd,
+                        min_log2=p.min_cu_log2, device=self.device)
 
             def warm_inter(with_b):
                 zi = np.zeros((p.h_aligned, p.w_aligned), np.int32)
@@ -391,12 +399,14 @@ class Encoder:
         return int(np.clip(qp, 0, 51))
 
     def _analyze_intra(self, y, u, v, qp, **kw):
-        """The "jax" engine's intra analysis of one padded frame."""
+        """The "jax" engine's intra analysis of one padded frame: the
+        33-mode EIPD analysis for Main, the 5-mode one for Baseline."""
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
         self.analysis_calls += 1
-        return analyze_frame_torch(y, u, v, qp, qp_y, qp_u, qp_v,
-                                   self.p.codec_bit_depth, device=self.device,
-                                   **kw)
+        analyze = analyze_frame_main_torch if self.p.tool_eipd \
+            else analyze_frame_torch
+        return analyze(y, u, v, qp, qp_y, qp_u, qp_v,
+                       self.p.codec_bit_depth, device=self.device, **kw)
 
     def _analyze_inter(self, y, u, v, refp, qp, qp_y, qp_u, qp_v, bd,
                        refp1=None, search_range=16):
@@ -429,6 +439,10 @@ class Encoder:
         bd = p.codec_bit_depth
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
 
+        if p.tool_eipd:
+            return self._encode_frame_i_main(y, u, v, nut, out, qp,
+                                             analysis_pre)
+
         if analysis_pre is not None:
             analysis = analysis_pre
         elif self.analysis_engine == "device":
@@ -441,14 +455,6 @@ class Encoder:
             analysis = self._analyze_intra(y, u, v, qp,
                                            min_log2=p.min_cu_log2)
 
-        sh = SliceHeader(slice_type=SLICE_I, qp=qp,
-                         qp_u_offset=p.qp_cb_offset, qp_v_offset=p.qp_cr_offset,
-                         deblocking_filter_on=1 if p.use_deblock else 0)
-        bw = BitWriter()
-        NalHeader(nut, 0).write(bw)
-        sh.write(bw, nut, self.sps, self.pps)
-        sh_bytes = bw.get_bytes()
-
         slice_payload, bin_count, rec_y, rec_u, rec_v, _tl = \
             encode_intra_frame_native(p.w_aligned, p.h_aligned, bd, qp,
                                       p.qp_cb_offset, p.qp_cr_offset,
@@ -459,18 +465,66 @@ class Encoder:
                                       cu_qp_delta_area=self.pps.cu_qp_delta_area,
                                       dquant_flag=self.sps.dquant_flag,
                                       exact_rd=p.exact_rd)
-        payload = sh_bytes + slice_payload
+        return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
+                                  (rec_y, rec_u, rec_v))
+
+    def _encode_frame_i_main(self, y, u, v, nut, out, qp, analysis_pre=None):
+        """Main-profile I slice: EIPD + CM_INIT + ADCC + IQT (+ ATS, HTDF,
+        ADDB, BTT per the parameters) on the native C pass (quad tree,
+        CTU 64).  Both engines analyse it with the EIPD analysis unless the
+        caller brings decisions (analysis_pre)."""
+        p = self.p
+        bd = p.codec_bit_depth
+        if analysis_pre is not None:
+            analysis = analysis_pre
+        else:
+            analysis = self._analyze_intra(y, u, v, qp,
+                                           min_log2=p.min_cu_log2)
+        slice_payload, bin_count, rec_y, rec_u, rec_v, tile_lens = \
+            encode_intra_frame_native(p.w_aligned, p.h_aligned, bd, qp,
+                                      p.qp_cb_offset, p.qp_cr_offset,
+                                      y, u, v, analysis,
+                                      use_rdoq=p.rdoq,
+                                      use_deblock=p.use_deblock,
+                                      main_eipd=1, tool_iqt=p.tool_iqt,
+                                      cm_init=p.tool_cm_init,
+                                      tile_cols=p.tile_columns,
+                                      tile_rows=p.tile_rows,
+                                      threads=p.threads,
+                                      aq_map=self._aq_map(y, u, v),
+                                      cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                                      dquant_flag=self.sps.dquant_flag,
+                                      tool_ats=p.tool_ats,
+                                      tool_htdf=p.tool_htdf,
+                                      tool_addb=p.tool_addb,
+                                      sps_btt=p.btt, exact_rd=p.exact_rd)
+        return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
+                                  (rec_y, rec_u, rec_v), tile_lens)
+
+    def _emit_i_slice(self, nut, out, qp, slice_payload, bin_count, rec,
+                      tile_lens=None):
+        """Append a coded I slice to `out` (slice header, entry points when
+        tile_lens is given, stuffing, signature SEI) and its reconstruction
+        to the DPB.  Returns (out, rec)."""
+        p = self.p
+        sh = SliceHeader(slice_type=SLICE_I, qp=qp,
+                         qp_u_offset=p.qp_cb_offset,
+                         qp_v_offset=p.qp_cr_offset,
+                         deblocking_filter_on=1 if p.use_deblock else 0)
+        if tile_lens is not None:
+            self._sh_tiles(sh, tile_lens)
+        bw = BitWriter()
+        NalHeader(nut, 0).write(bw)
+        sh.write(bw, nut, self.sps, self.pps)
+        payload = bw.get_bytes() + slice_payload
         payload += self._cabac_zero_words(bin_count, len(payload))
         out += wrap_nal(payload)
-
         if p.use_pic_sign:
-            out += self._signature_sei(rec_y, rec_u, rec_v)
-
-        self._dpb_push(rec_y, rec_u, rec_v, None)
+            out += self._signature_sei(*rec)
+        self._dpb_push(*rec, None)
         self.pic_cnt += 1
-        self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0,
-                        rec=(rec_y, rec_u, rec_v))
-        return out, (rec_y, rec_u, rec_v)
+        self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0, rec=rec)
+        return out, rec
 
     def _dpb_push(self, rec_y, rec_u, rec_v, map_mv, poc=None, tid=0,
                   is_ref=True, is_idr=False, list0_poc=None):
@@ -589,6 +643,9 @@ class Encoder:
         waits for reconstruction).
         """
         p = self.p
+        if p.tool_eipd and p.keyint == 1:
+            yield from self._encode_stream_main_ai(frames, ahead)
+            return
         if self.analysis_engine != "device":
             for (y, u, v) in frames:
                 bs, rec = self.encode_frame(y, u, v)
@@ -653,24 +710,10 @@ class Encoder:
                 out = b""
                 if self.pic_cnt == 0 or nut == NUT_IDR:
                     out += self._headers()
-                sh = SliceHeader(slice_type=SLICE_I, qp=qp,
-                                 qp_u_offset=p.qp_cb_offset,
-                                 qp_v_offset=p.qp_cr_offset,
-                                 deblocking_filter_on=1 if p.use_deblock
-                                 else 0)
-                bw = BitWriter()
-                NalHeader(nut, 0).write(bw)
-                sh.write(bw, nut, self.sps, self.pps)
-                payload = bw.get_bytes() + payload
-                payload += self._cabac_zero_words(bin_count, len(payload))
-                out += wrap_nal(payload)
-                if p.use_pic_sign:
-                    out += self._signature_sei(rec_y, rec_u, rec_v)
-                self._dpb_push(rec_y, rec_u, rec_v, None)
-                self.pic_cnt += 1
-                self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0,
-                                rec=(rec_y, rec_u, rec_v))
-                return out, (rec_y, rec_u, rec_v), self.poc - 1
+                out, rec = self._emit_i_slice(nut, out, qp, payload,
+                                              bin_count,
+                                              (rec_y, rec_u, rec_v))
+                return out, rec, self.poc - 1
             bs, rec = self.encode_frame(*yuv, analysis_pre=dev.collect(hd))
             if p.closed_loop_ld:
                 # swap the coded frame's ring entry for its reconstruction
@@ -689,6 +732,34 @@ class Encoder:
             ahead = 0
         for fr in frames:
             dispatch(fr)
+            if len(pending) > ahead:
+                yield code_next()
+        while pending:
+            yield code_next()
+
+    def _encode_stream_main_ai(self, frames, ahead):
+        """Main AI with either engine: the EIPD analyses of up to `ahead`
+        future frames are enqueued on the device (dispatch_main_torch makes
+        no host readback) while the native C pass codes the current
+        frame."""
+        p = self.p
+        pending = deque()
+
+        def code_next():
+            yuv, hd = pending.popleft()
+            bs, rec = self.encode_frame(*yuv,
+                                        analysis_pre=collect_main_torch(hd))
+            return bs, rec, self.poc - 1
+
+        for fr in frames:
+            y, u, v = self._pad_input(*fr)
+            qp = self._slice_qp(SLICE_I)
+            hd = dispatch_main_torch(y, u, v, qp, *self._qp_triplet(qp),
+                                     p.codec_bit_depth,
+                                     min_log2=p.min_cu_log2,
+                                     device=self.device)
+            self.analysis_calls += 1
+            pending.append(((y, u, v), hd))
             if len(pending) > ahead:
                 yield code_next()
         while pending:

@@ -5,10 +5,6 @@ our own bitstreams and the reference encoder's (xeve) bitstreams to the exact
 reconstruction the encoder produced.  It is written for clarity (numpy +
 Python), not speed.
 
-The port's copy of xeve_tpu/dec/decoder.py.  The Main-profile tools whose
-modules the port does not carry yet (DRA, ADCC, HTDF, ADDB) raise
-NotImplementedError where the original imports them.
-
 Syntax/semantics derived from the reference encoder:
   - NAL/SPS/PPS/SH: src_base/xeve_eco.c:45-290
   - CTU tree + CU syntax: src_base/xeve_enc.c:35-101 (xeve_eco_tree),
@@ -46,11 +42,6 @@ for _l in range(6):
 
 class DecodeError(Exception):
     """Raised when the bitstream is malformed/truncated."""
-
-
-def _unported(tool: str):
-    return NotImplementedError(f"{tool} is not ported to xeve_tpu_torch "
-                               "yet (Main-profile slice)")
 
 
 @dataclass
@@ -125,7 +116,12 @@ class BaselineIntraDecoder:
         aps_id = br.read(5)
         aps_type = br.read(3)
         if aps_type == 1:
-            raise _unported(f"DRA (APS {aps_id})")
+            from ..ops.dra_np import SigParamDRA
+            sig = SigParamDRA.parse(br, self.sps.bit_depth_luma_minus8 + 8)
+            if not hasattr(self, "dra_aps"):
+                self.dra_aps = {}
+            self.dra_aps[aps_id] = sig
+            self._dra_maps = None        # invalidate LUT cache
 
     def _check_sei(self, payload: bytes):
         """Verify picture-signature SEI (payload type 0x10): per-plane MD5
@@ -378,7 +374,15 @@ class BaselineIntraDecoder:
             ch = self.h - 2 * (s.picture_crop_top_offset + s.picture_crop_bottom_offset)
         out_y, out_u, out_v = self.rec_y, self.rec_u, self.rec_v
         if self.sps.tool_dra and self.pps.pic_dra_enabled_flag:
-            raise _unported("DRA")
+            # backward DRA on the OUTPUT picture only — the DPB stays in
+            # the mapped domain (CFG_GET_RECON path, xevem.c:1036)
+            from ..ops.dra_np import build_dra_maps, apply_dra
+            if getattr(self, "_dra_maps", None) is None:
+                self._dra_maps = build_dra_maps(
+                    self.dra_aps[self.pps.pic_dra_aps_id], self.bd,
+                    want_fwd=False)
+            out_y, out_u, out_v = apply_dra(out_y, out_u, out_v,
+                                            self._dra_maps, backward=True)
         self.frames.append(DecodedFrame(
             out_y.copy(), out_u.copy(), out_v.copy(),
             poc=self.poc, slice_type=sh.slice_type, qp=sh.qp,
@@ -805,7 +809,8 @@ class BaselineIntraDecoder:
     def _decode_coef_block(self, sbac: SbacDecoder, ctx: SbacCtx, w, h, ch_type):
         """Coefficient decode: ADCC (Main) or run-length (Baseline)."""
         if self.sps.tool_adcc:
-            raise _unported("ADCC")
+            from ..entropy import adcc
+            return adcc.decode_block(sbac, ctx, w, h, ch_type)
         return self._decode_coef_block_rl(sbac, ctx, w, h, ch_type)
 
     def _decode_coef_block_rl(self, sbac: SbacDecoder, ctx: SbacCtx, w, h,
@@ -1171,7 +1176,11 @@ class BaselineIntraDecoder:
         # (established against the s96_htdf_{ai,zl,ra} golden recon
         # dumps, 28 frames bit-exact incl. signature SEIs).
         if self.sps.tool_htdf and mode_intra:
-            raise _unported("HTDF")
+            from ..ops import htdf_np
+            htdf_np.htdf_cu(self.rec_y, x, y, cuw, cuh, self.sh.qp,
+                            mode_intra,
+                            self._avail_intra_flags(x_scu, y_scu, scuw, scuh),
+                            self.bd)
 
         # update maps
         ys, xs = y_scu, x_scu
@@ -1466,7 +1475,22 @@ class BaselineIntraDecoder:
                 not self.pps.loop_filter_across_tiles_enabled_flag:
             tidx = self.map_tidx
         if self.sps.tool_addb:
-            raise _unported("ADDB")
+            from ..ops.addb_np import deblock_frame_addb
+            ref_pocs = ([p["poc"] for p in self.refp],
+                        [p["poc"] for p in self.refp1])
+            deblock_frame_addb(self.rec_y, self.rec_u, self.rec_v,
+                               self._deblock_cus(), self.map_if,
+                               self.map_cbf_l,
+                               self.map_qp, self.map_refi, self.map_mv,
+                               ref_pocs,
+                               self.sh.qp_u_offset, self.sh.qp_v_offset,
+                               self.bd, self.sps.bit_depth_chroma_minus8,
+                               alpha_off=self.sh.sh_deblock_alpha_offset,
+                               beta_off=self.sh.sh_deblock_beta_offset,
+                               main_qp_table=self.sps.tool_iqt,
+                               map_tidx=tidx,
+                               log2_ctu=self.log2_max_cuwh)
+            return
         from ..ops.deblock_np import deblock_frame
         deblock_frame(self.rec_y, self.rec_u, self.rec_v,
                       self._deblock_cus(),

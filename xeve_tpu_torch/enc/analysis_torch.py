@@ -223,10 +223,12 @@ def _partition_dp(mode, leaf_cost, h, w, lam, min_log2, max_log2):
 
 def to_device(plane, dtype, device):
     """A host plane (numpy or tensor) as a contiguous `dtype` tensor on
-    `device`; the upload keeps the plane's own integer type."""
+    `device`; the upload keeps the plane's own integer type.  It makes no
+    stream synchronisation: a host-to-device copy from pageable memory is
+    staged before the call returns."""
     t = torch.as_tensor(np.ascontiguousarray(plane)) \
         if isinstance(plane, np.ndarray) else plane
-    return t.to(device=device).to(dtype).contiguous()
+    return t.to(device=device, non_blocking=True).to(dtype).contiguous()
 
 
 def analyze_frame_torch(orig_y, orig_u, orig_v, qp, qp_y, qp_u, qp_v, bd,

@@ -36,10 +36,10 @@ def ctx_init_model(init_value: int, qp: int) -> int:
 
 
 def ctx_array_init(name: str, n: int, slice_type, slice_qp) -> list[int]:
-    """Main-profile context initialisation (tool_cm_init); its tables
-    (ctx_init) come with the port's Main-profile slice."""
-    raise NotImplementedError("CM_INIT is not ported to xeve_tpu_torch yet "
-                              "(Main-profile slice)")
+    from .ctx_init import CTX_INIT
+    row = CTX_INIT[name][1 if slice_type in (0, 1) else 0]  # row1: P/B
+    assert len(row) == n, f"{name}: table {len(row)} != {n}"
+    return [ctx_init_model(v, slice_qp) for v in row]
 
 
 class SbacCtx:

@@ -11,9 +11,6 @@ These are the *bit-exact semantics* of the codec's pixel/coefficient math:
 They serve as golden oracles for the JAX/Pallas TPU kernels, and as the
 reconstruction path of the conformance decoder.  Everything operates on
 int32/int64 numpy arrays; no floats in the normative paths.
-
-The port's copy of xeve_tpu/ops/reference_kernels.py; the ATS transforms
-raise NotImplementedError until the Main-profile slice brings their tables.
 """
 from __future__ import annotations
 
@@ -119,18 +116,35 @@ def dequant(levels: np.ndarray, qp: int, bit_depth: int,
 
 def forward_ats(resi: np.ndarray, ats_mode: int, bit_depth: int) -> np.ndarray:
     """Forward DST7/DCT8 2-D transform (xeve_t_MxN_ats_intra shifts,
-    xevem_tq.c:684-687).  Its tables (constants_ats) come with the port's
-    Main-profile slice."""
-    raise NotImplementedError("ATS is not ported to xeve_tpu_torch yet "
-                              "(Main-profile slice)")
+    xevem_tq.c:684-687): horizontal stage then vertical, int16 intermediate.
+    ats_mode bit1 selects the horizontal transform, bit0 the vertical."""
+    from ..constants_ats import TR_DST7, TR_DCT8
+    h, w = resi.shape
+    tm_h = (TR_DCT8 if (ats_mode >> 1) else TR_DST7)[w]
+    tm_v = (TR_DCT8 if (ats_mode & 1) else TR_DST7)[h]
+    s1 = (w.bit_length() - 1) - 1 + bit_depth - 8
+    s2 = (h.bit_length() - 1) + 6
+    a = resi.astype(np.int64)
+    t = (a @ tm_h.T + (1 << (s1 - 1))) >> s1
+    t = np.clip(t, -32768, 32767)
+    c = (tm_v @ t + (1 << (s2 - 1))) >> s2
+    return np.clip(c, -32768, 32767).astype(np.int32)
 
 
 def inverse_ats(coef: np.ndarray, ats_mode: int, bit_depth: int) -> np.ndarray:
     """Inverse DST7/DCT8 2-D transform (xeve_it_MxN_ats_intra,
-    xevem_itdq.c:278).  Its tables (constants_ats) come with the port's
-    Main-profile slice."""
-    raise NotImplementedError("ATS is not ported to xeve_tpu_torch yet "
-                              "(Main-profile slice)")
+    xevem_itdq.c:278): ats_mode bit1 selects the horizontal transform,
+    bit0 the vertical; bit==0 -> DST-7, bit==1 -> DCT-8."""
+    from ..constants_ats import TR_DST7, TR_DCT8
+    h, w = coef.shape
+    tm_v = (TR_DCT8 if (ats_mode & 1) else TR_DST7)[h]
+    tm_h = (TR_DCT8 if (ats_mode >> 1) else TR_DST7)[w]
+    a = coef.astype(np.int64)
+    b1 = (a.T @ tm_v + (1 << 6)) >> 7
+    b1 = np.clip(b1, -32768, 32767)
+    s2 = 20 - bit_depth
+    out = (b1.T @ tm_h + (1 << (s2 - 1))) >> s2
+    return np.clip(out, -32768, 32767).astype(np.int32)
 
 
 def ats_inter_trs(ats_inter_info: int, log2_cuw: int, log2_cuh: int):
