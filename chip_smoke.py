@@ -50,9 +50,31 @@ where it is auto-on), at 1920x1088, QP 32, preset medium:
  18. round trip: Main AI, LD-P and RA streams ("jax" engine) and a
      device-engine Main RA stream at 128x64 coded on the card decode
      bit-exactly.
-The ME kernel's launch count is set to 0 before each of phases 5, 6, 16
-and 17 and read after it (2, 31, 0 and 31 launches; the device engine
-and Main AI do not launch it); the record sums phases 5, 6 and 17.
+then this slice's public surface: rate control, DRA, checkpoint/resume,
+the CLIs and the numpy coder:
+ 19. device-engine RA GOP16 under ABR at 1920x1088, 33 frames (bench.py's
+     engine; the port's main path), at a target of twice phase 12's CQ-32
+     rate: fps, kbps against the target, the qp range, the peak VBV
+     fullness over its size (<= 1), one dispatch per frame, no failure;
+ 20. "jax"-engine RA GOP16 under CRF 32, 17 frames: 31 ME launches, fps,
+     kbps, PSNR-Y;
+ 21. device-engine LD-P under ABR, 12 frames of a 1080p pan whose luma
+     inverts (1023 - y) from frame 6: the lookahead marks frame 6 a
+     keyframe (`_force_idr`) and codes it as an I slice;
+ 22. Main AI with DRA on the device engine, 1 frame through encode_stream:
+     PSNR-Y of the backward-mapped recon against the original > 30 dB;
+ 23. the CLI (`python -m xeve_tpu_torch.app --analysis auto -b 15 --rc
+     abr`) in a subprocess on a 17-frame 1080p clip written into build/:
+     it must choose the device engine; its summary;
+ 24. round trip at 128x64 on the card, each stream decoding bit-exactly:
+     ABR LD-P and RA (device engine), CRF RA ("jax"), DRA Main AI and
+     LD-P (device engine), a resumed "jax"-engine LD-P equal to the
+     unbroken encode, coder="numpy" LD-P equal to the native pass, and the
+     CLI's recon equal to dec_app's output.
+The ME kernel's launch count is set to 0 before each of phases 5, 6, 16,
+17, 19 and 20 and read after it (2, 31, 0, 31, 0 and 31 launches; the
+device engine and Main AI do not launch it); the record sums phases 5, 6,
+17 and 20.
 Every phase runs on the port's own modules: neither jax nor the JAX
 package xeve_tpu is imported.
 The last three lines are the run's wall time, the kernel record and
@@ -70,11 +92,11 @@ PAD = 80
 AGREE_MIN = 0.99
 
 
-def _frames(w, h, n):
+def _frames(w, h, n, start=0):
     import numpy as np
     from gen_test_content import gen_frame
     out = []
-    for t in range(n):
+    for t in range(start, n):
         y, u, v = gen_frame(w, h, t)
         out.append((y.astype(np.int16) << 2, u.astype(np.int16) << 2,
                     v.astype(np.int16) << 2))
@@ -464,6 +486,7 @@ def _c_pass_share(spans, t0, t1):
 
 
 def phase_device_encode(label, cls, params, frames, **kw):
+    """A device-engine encode; returns its kbps at 30 fps."""
     import numpy as np
     enc = cls(params, analysis="device", device="cuda")
     # time every P/B-slice C pass (frame-parallel ones run on worker
@@ -490,6 +513,7 @@ def phase_device_encode(label, cls, params, frames, **kw):
           + ("; P/B C passes: {:.3f} of the wall busy, mean concurrency "
              "{:.3f}".format(*_c_pass_share(spans, t0, t1)) if spans
              else ""), flush=True)
+    return nbytes * 8 * 30.0 / n / 1000.0
 
 
 def _main_qps():
@@ -637,6 +661,192 @@ def phase_encode(label, cls, params, frames, me_cuda, launches):
     return n_launch
 
 
+def _rc_stream(enc, frames):
+    """encode_stream under RC: the outputs, the wall, and per coded frame
+    the slice type, the qp and the VBV fullness after it."""
+    out, stats = [], []
+    t0 = time.perf_counter()
+    for o in enc.encode_stream(iter(frames)):
+        out.append(o)
+        stats.append((enc.last_stat.slice_type, enc.last_stat.qp,
+                      enc.rc.vbv_fullness))
+    return out, stats, time.perf_counter() - t0
+
+
+def _rate_line(frames, out, dt):
+    """fps, kbps at 30 fps and mean PSNR-Y of an encode, checked finite."""
+    import numpy as np
+    n = len(out)
+    assert n == len(frames), f"{n} outputs for {len(frames)} frames"
+    ps = [_psnr_y(frames[poc][0], rec[0]) for _bs, rec, poc in out]
+    assert all(np.isfinite(p) and p > 30.0 for p in ps), ps
+    kbps = sum(len(bs) for bs, _r, _p in out) * 8 * 30.0 / n / 1000.0
+    return n / dt, kbps, float(np.mean(ps))
+
+
+def phase_abr_ra(GopEncoder, EncoderParams, frames, target):
+    """Device-engine RA GOP16 under ABR (the port's main path): one
+    dispatch per frame, no device failure, the VBV never overflowing."""
+    enc = GopEncoder(EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
+                                   preset="medium", rc_type="abr",
+                                   bitrate_kbps=target),
+                     analysis="device", device="cuda")
+    out, stats, dt = _rc_stream(enc, frames)
+    fps, kbps, psnr = _rate_line(frames, out, dt)
+    dev = enc._device()
+    assert dev.dispatches == len(frames), f"{dev.dispatches} dispatches"
+    assert dev.failures == 0, f"{dev.failures} device failures"
+    qps = [q for _st, q, _v in stats]
+    peak = max(v for _st, _q, v in stats) / enc.rc.vbv_size
+    assert peak <= 1.0, f"VBV overflow: peak fullness {peak:.3f} of its size"
+    print(f"phase 19 ABR RA: {len(out)} frames {W}x{H} device engine in "
+          f"{dt:.3f} s = {fps:.4f} fps, {kbps:.1f} kbps at 30 fps against "
+          f"a target of {target:.1f} ({kbps / target - 1.0:+.3%}), PSNR-Y "
+          f"{psnr:.3f} dB, qp {min(qps)}-{max(qps)}, peak VBV fullness "
+          f"{peak:.3f} of its size, dispatches {dev.dispatches}, failures 0, "
+          f"sub-GOPs coded serially (RC)", flush=True)
+
+
+def phase_scene_cut(Encoder, EncoderParams, target):
+    """Device-engine LD-P under ABR on a 1080p pan whose luma inverts at
+    frame 6: the lookahead marks frame 6 and codes it as an I slice."""
+    import numpy as np
+    from xeve_tpu_torch.constants import SLICE_I
+    base = _frames(W, H, 1)[0]
+    frames = []
+    for t in range(12):
+        # one luma pel to the left per frame
+        y, u, v = (np.roll(p, t >> s, axis=1) for p, s in zip(base, (0, 1, 1)))
+        if t >= 6:
+            y = (1023 - y).astype(np.int16)
+        frames.append((y, u, v))
+    enc = Encoder(EncoderParams(w=W, h=H, qp=QP, keyint=0, preset="medium",
+                                rc_type="abr", bitrate_kbps=target),
+                  analysis="device", device="cuda")
+    out, stats, dt = _rc_stream(enc, frames)
+    fps, kbps, psnr = _rate_line(frames, out, dt)
+    types = [st for st, _q, _v in stats]
+    assert 6 in enc._force_idr, f"scene cut not marked: {enc._force_idr}"
+    assert types[6] == SLICE_I and types.count(SLICE_I) == 2, types
+    assert enc._device().dispatches == 12 and enc._device().failures == 0
+    print(f"phase 21 scene cut: LD-P ABR {W}x{H}, 12 frames (a pan, luma "
+          f"inverted from frame 6): keyframes at {sorted(enc._force_idr)} "
+          f"(I slices at {[i for i, t in enumerate(types) if t == SLICE_I]}"
+          f"), qps {[q for _s, q, _v in stats]}, {fps:.4f} fps, {kbps:.1f} "
+          f"kbps, PSNR-Y {psnr:.3f} dB", flush=True)
+
+
+def phase_dra_main_ai(Encoder, EncoderParams, frame):
+    """Main AI with DRA on the device engine through encode_stream: the
+    returned recon is backward-mapped, close to the original."""
+    enc = Encoder(EncoderParams(w=W, h=H, qp=QP, keyint=1, profile=1,
+                                tool_dra=1, preset="medium"),
+                  analysis="device", device="cuda")
+    t0 = time.perf_counter()
+    out = list(enc.encode_stream(iter([frame])))
+    dt = time.perf_counter() - t0
+    (bs, rec, _poc), = out
+    p = _psnr_y(frame[0], rec[0])
+    mapped = _psnr_y(enc._pad_input(*frame)[0], rec[0])
+    assert p > 30.0 and p > mapped, f"PSNR-Y {p:.3f}, mapped-domain {mapped}"
+    print(f"phase 22 DRA Main AI: 1 frame {W}x{H} device engine in {dt:.3f} "
+          f"s, {len(bs)} bytes, PSNR-Y of the backward-mapped recon "
+          f"{p:.3f} dB (against the forward-mapped original {mapped:.3f}), "
+          f"analyses {enc.analysis_calls}, btt {enc.p.btt}", flush=True)
+
+
+def phase_cli(target):
+    """The port's CLI in a subprocess on a 17-frame 1080p clip: --analysis
+    auto must choose the device engine."""
+    from gen_test_content import write_clip
+    d = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    clip = os.path.join(d, "clip1080.yuv")
+    write_clip(clip, W, H, 17)
+    cmd = [sys.executable, "-m", "xeve_tpu_torch.app", "-i", clip,
+           "-w", str(W), "-h2", str(H), "-q", str(QP), "--analysis", "auto",
+           "-b", "15", "--rc", "abr", "--bitrate", str(int(target)),
+           "-o", os.path.join(d, "cli.evc"), "-v", "3"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    dt = time.perf_counter() - t0
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("analysis engine device, coder native, "
+                               "device cuda"), lines[0]
+    summary = [l for l in lines[1:] if ":" in l and not l.startswith("poc ")]
+    assert any(l.startswith("Frames              : 17") for l in summary)
+    print(f"phase 23 CLI: python -m xeve_tpu_torch.app --analysis auto -b 15 "
+          f"--rc abr --bitrate {int(target)} on a 17-frame {W}x{H} clip: "
+          f"{lines[0]}; " + "; ".join(l.replace("  ", "").strip()
+                                      for l in summary)
+          + f"; {dt:.1f} s with the process start", flush=True)
+
+
+def phase_round_trips_5(Encoder, GopEncoder, EncoderParams, small):
+    """128x64 round trips of this slice's routes on the card."""
+    from xeve_tpu_torch import app, dec_app
+    from xeve_tpu_torch.state import load_state, save_state
+    abr = dict(rc_type="abr", bitrate_kbps=300.0)
+    phase_round_trip(24, (
+        ("device-engine ABR LD-P", Encoder, dict(keyint=0, **abr), small[:6],
+         "device"),
+        ("device-engine ABR RA", GopEncoder, dict(keyint=0, bframes=15,
+                                                  **abr), small, "device"),
+        ("CRF RA", GopEncoder, dict(keyint=0, bframes=15, rc_type="crf",
+                                    crf=32), small[:17], "jax"),
+        ("device-engine DRA Main AI", Encoder, dict(keyint=1, profile=1,
+                                                    tool_dra=1), small[:2],
+         "device"),
+        ("device-engine DRA Main LD-P", Encoder, dict(keyint=0, profile=1,
+                                                      tool_dra=1),
+         small[:4], "device")), EncoderParams)
+    # resume: a "jax"-engine LD-P encode cut at frame 3
+    p = dict(w=128, h=64, qp=QP, keyint=0)
+
+    def coded(enc, frames, first):
+        return [(*enc.encode_frame(*f), first + i)
+                for i, f in enumerate(frames)]
+
+    whole = coded(Encoder(EncoderParams(**p), device="cuda"), small[:6], 0)
+    enc = Encoder(EncoderParams(**p), device="cuda")
+    split = coded(enc, small[:3], 0)
+    enc2 = Encoder(EncoderParams(**p), device="cuda")
+    load_state(enc2, save_state(enc))
+    split += coded(enc2, small[3:6], 3)
+    assert [o[0] for o in split] == [o[0] for o in whole], \
+        "resumed encode differs from the unbroken one"
+    _assert_decodes("resumed LD-P", split, 6)
+    # coder="numpy" against the C pass (exact_rd 0, as the tests hold them)
+    p = dict(w=128, h=64, qp=QP, keyint=0, exact_rd=0)
+    outs = [list(Encoder(EncoderParams(**p), coder=c, device="cuda")
+                 .encode_stream(iter(small[:4]))) for c in ("numpy", "native")]
+    assert [o[0] for o in outs[0]] == [o[0] for o in outs[1]], \
+        "coder numpy differs from native"
+    _assert_decodes("coder numpy LD-P", outs[0], 4)
+    # the CLIs: encoder recon dump against the decoder CLI's output
+    from gen_test_content import write_clip
+    d = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    clip, bs, rec, dec = (os.path.join(d, n) for n in (
+        "clip128.yuv", "o128.evc", "rec128.yuv", "dec128.yuv"))
+    write_clip(clip, 128, 64, 6)
+    assert app.main(["-i", clip, "-w", "128", "-h2", "64", "-q", str(QP),
+                     "--rc", "abr", "--bitrate", "300", "-o", bs, "-r", rec,
+                     "-v", "0"]) == 0
+    assert dec_app.main(["-i", bs, "-o", dec, "-v", "0"]) == 0
+    with open(rec, "rb") as a, open(dec, "rb") as b:
+        assert a.read() == b.read(), "CLI recon differs from dec_app output"
+    print(f"phase 24 (cont.): a resumed \"jax\"-engine LD-P (6 frames, "
+          f"cut at 3) equals the unbroken encode "
+          f"({sum(len(o[0]) for o in whole)} bytes); coder=\"numpy\" LD-P "
+          f"(4) equals the native pass "
+          f"({sum(len(o[0]) for o in outs[0])} bytes); both decode "
+          f"bit-exactly; the CLI's ABR LD-P recon (6) equals dec_app's "
+          f"output", flush=True)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -699,9 +909,10 @@ def main():
     phase_device_encode("phase 11 LD-P", Encoder,
                         EncoderParams(w=W, h=H, qp=QP, keyint=0,
                                       preset="medium"), frames[:8], ahead=3)
-    phase_device_encode("phase 12 RA", GopEncoder,
-                        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
-                                      preset="medium"), frames)
+    ra_kbps = phase_device_encode(
+        "phase 12 RA", GopEncoder,
+        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
+                      preset="medium"), frames)
     assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
     phase_round_trip(13, (
         ("device-engine LD-P", Encoder, dict(keyint=0), small[:5],
@@ -726,6 +937,21 @@ def main():
         ("device-engine Main RA", GopEncoder,
          dict(keyint=0, bframes=15, profile=1), small, "device")),
         EncoderParams)
+
+    # rate control, DRA, checkpoint/resume, the CLIs, the numpy coder
+    target = round(2.0 * ra_kbps, 1)     # about 2x phase 12's CQ-32 rate
+    me_cuda.LAUNCHES = 0
+    phase_abr_ra(GopEncoder, EncoderParams,
+                 frames + _frames(W, H, 33, start=17), target)
+    assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
+    launches += phase_encode(
+        "phase 20 CRF RA", GopEncoder,
+        EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15, rc_type="crf",
+                      crf=32, preset="medium"), frames, me_cuda, 31)
+    phase_scene_cut(Encoder, EncoderParams, target)
+    phase_dra_main_ai(Encoder, EncoderParams, frames[0])
+    phase_cli(target)
+    phase_round_trips_5(Encoder, GopEncoder, EncoderParams, small)
     assert not any(m.split(".")[0] in ("jax", "xeve_tpu")
                    for m in sys.modules), "the port imported jax or xeve_tpu"
 

@@ -329,8 +329,13 @@ def test_no_cpu_continuation_without_cuda(monkeypatch):
         dt.DeviceAnalyzer(64, 64, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_api.Encoder(EncoderParams(w=64, h=64), analysis="device")
+    # the numpy engine runs on the CPU when the caller asks for it; an
+    # unknown engine is refused
+    enc = torch_api.Encoder(EncoderParams(w=64, h=64), analysis="numpy",
+                            device="cpu")
+    assert enc.analysis_engine == "numpy" and enc.device.type == "cpu"
     with pytest.raises(ValueError, match="engine"):
-        torch_api.Encoder(EncoderParams(w=64, h=64), analysis="numpy",
+        torch_api.Encoder(EncoderParams(w=64, h=64), analysis="pallas",
                           device="cpu")
 
 

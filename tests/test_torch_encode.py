@@ -89,13 +89,19 @@ def test_intra_frames_use_port_analysis(monkeypatch):
     assert enc.analysis_calls == 2 and len(calls) == 2
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(rc_type="abr", bitrate_kbps=500.0), NotImplementedError),
-    (dict(profile=1, tool_eipd=0, tool_dra=1), NotImplementedError),
+@pytest.mark.parametrize("kw", [
+    dict(rc_type="abr", bitrate_kbps=500.0),
+    dict(profile=1, tool_dra=1),
 ])
-def test_unported_configurations_raise(kw, exc):
-    with pytest.raises(exc):
-        torch_api.Encoder(EncoderParams(w=64, h=64, **kw), device="cpu")
+def test_unported_configurations_raise(kw):
+    """Rate control and encoder-side DRA, refused before the port had them,
+    now construct, encode and decode (test_torch_rc.py and test_torch_dra.py
+    hold them to the JAX package)."""
+    enc = torch_api.Encoder(EncoderParams(w=64, h=64, **kw), device="cpu")
+    out = list(enc.encode_stream(iter(_ra_frames(2, 64, 64))))
+    assert len(out) == 2 and enc.analysis_calls == 2
+    assert len(BaselineIntraDecoder().decode(
+        b"".join(bs for bs, _r, _p in out))) == 2
 
 
 def test_unported_entry_points_raise():
@@ -109,12 +115,13 @@ def test_unported_entry_points_raise():
 
 
 def test_unported_coders_raise():
-    """coder="python" is the numpy FramePass oracle, not ported yet."""
-    with pytest.raises(NotImplementedError):
-        torch_api.Encoder(EncoderParams(w=64, h=64), coder="python",
-                          device="cpu")
+    """coder="numpy" is the numpy FramePass oracle (the JAX package's name
+    for it) and encodes; any other name, "python" included, is refused."""
+    enc = torch_api.Encoder(EncoderParams(w=64, h=64), coder="numpy",
+                            device="cpu")
+    assert len(enc.encode_frame(*_ra_frames(1, 64, 64)[0])[0]) > 0
     with pytest.raises(ValueError, match="coding pass"):
-        torch_api.Encoder(EncoderParams(w=64, h=64), coder="numpy",
+        torch_api.Encoder(EncoderParams(w=64, h=64), coder="python",
                           device="cpu")
 
 

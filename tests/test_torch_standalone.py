@@ -50,22 +50,25 @@ from xeve_tpu_torch import api
 from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.params import EncoderParams
 
+GOPS = {"ldp": (dict(keyint=0), 3),
+        "ra": (dict(keyint=0, bframes=15), 17),
+        "main_ai": (dict(keyint=1, profile=1), 3),
+        "main_ra": (dict(keyint=0, bframes=15, profile=1), 17),
+        "ra_abr": (dict(keyint=0, bframes=15, rc_type="abr",
+                        bitrate_kbps=300.0), 17),
+        "main_ai_dra": (dict(keyint=1, profile=1, tool_dra=1), 2)}
 engine, gop = sys.argv[1], sys.argv[2]
-n = 17 if gop.endswith("ra") else 3
+kw, n = GOPS[gop]
 frames = []
 for t in range(n):
     y, u, v = gen_frame(64, 64, t)
     frames.append((y.astype(np.int16) << 2, u.astype(np.int16) << 2,
                    v.astype(np.int16) << 2))
-kw = dict(bframes=15) if gop.endswith("ra") else {}
-if gop.startswith("main"):
-    kw["profile"] = 1
-keyint = 1 if gop == "main_ai" else 0
-enc = api.GopEncoder(EncoderParams(w=64, h=64, qp=32, keyint=keyint, **kw),
+enc = api.GopEncoder(EncoderParams(w=64, h=64, qp=32, **kw),
                      analysis=engine, device="cpu")
 out = list(enc.encode_stream(iter(frames)))
 assert len(out) == n, len(out)
-if engine == "jax" or gop == "main_ai":
+if engine == "jax" or gop.startswith("main_ai"):
     assert enc.analysis_calls == n
 else:
     assert enc._device().dispatches == n and enc._device().failures == 0
@@ -83,19 +86,54 @@ print("ok", sum(len(bs) for bs, _r, _p in out))
 
 
 @pytest.mark.parametrize("engine", ["jax", "device"])
-@pytest.mark.parametrize("gop", ["ldp", "ra", "main_ai", "main_ra"])
+@pytest.mark.parametrize("gop", ["ldp", "ra", "main_ai", "main_ra", "ra_abr",
+                                 "main_ai_dra"])
 def test_port_encodes_and_decodes_without_jax_package(engine, gop):
     """A fresh interpreter in which neither jax nor xeve_tpu can be
-    imported encodes Baseline LD-P and RA GOP16, Main AI and Main RA GOP16
-    with both engines and decodes its own stream bit-exactly through the
-    port's decoder.  Main AI analyses every frame with the EIPD analysis
-    on either engine (analysis_calls)."""
+    imported encodes Baseline LD-P and RA GOP16, Main AI and Main RA GOP16,
+    an ABR RA GOP16 and a DRA Main AI with both engines and decodes its own
+    stream bit-exactly through the port's decoder (the DRA recon
+    backward-mapped on both sides).  Main AI analyses every frame with the
+    EIPD analysis on either engine (analysis_calls)."""
     # one intra-op thread, as in the test workers (test_torch_encode.py)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", SCRIPT, engine, gop], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.startswith("ok ")
+
+
+CLI_SCRIPT = r"""
+import os, sys
+sys.modules["jax"] = None
+sys.modules["xeve_tpu"] = None
+from xeve_tpu_torch import app, dec_app
+
+tmp = sys.argv[1]
+bs, rec, dec = (os.path.join(tmp, n) for n in ("o.evc", "rec.yuv",
+                                              "dec.yuv"))
+assert app.main(["-i", "tests/data/s96b.yuv", "-w", "96", "-h2", "80",
+                 "--frames", "3", "--rc", "abr", "--bitrate", "200",
+                 "--device", "cpu", "-o", bs, "-r", rec]) == 0
+assert dec_app.main(["-i", bs, "-o", dec]) == 0
+assert open(rec, "rb").read() == open(dec, "rb").read()
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "xeve_tpu")]
+assert not loaded, loaded
+print("ok", os.path.getsize(bs))
+"""
+
+
+def test_port_cli_round_trip_without_jax_package(tmp_path):
+    """The port's encoder CLI (ABR, numpy engine with --device cpu) and
+    its decoder CLI in an interpreter where jax and xeve_tpu cannot be
+    imported: the decoder writes the recon the encoder dumped."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", CLI_SCRIPT, str(tmp_path)],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "ok " in r.stdout
 
 
 def _port_sources():
@@ -148,7 +186,12 @@ VERBATIM = ["params.py", "hls.py", "io/bits.py",
             "ops/intra_main_batch.py", "enc/analysis_main_np.py",
             # restored in full once the Main modules above were copied
             "entropy/sbac.py", "ops/reference_kernels.py",
-            "dec/decoder.py"]
+            "dec/decoder.py",
+            # rate control, checkpoint/resume, video I/O and the numpy
+            # coding passes
+            "enc/rc.py", "state.py", "io/video.py", "ops/intra_np.py",
+            "enc/rdoq.py", "enc/syntax_main.py", "enc/frame_pass.py",
+            "enc/main_intra_frame.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

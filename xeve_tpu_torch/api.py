@@ -2,7 +2,7 @@
 reference C API surface (inc/xeve.h xeve_create/xeve_push/xeve_encode).
 
 The port's copy of xeve_tpu/api.py, with its analysis in PyTorch on an
-explicit device.  Two analysis engines:
+explicit device.  Three analysis engines:
 
 - analysis="device" (the engine bench.py measures): the fused per-frame
   analyzer, enc/device_analyzer.DeviceAnalyzer, behind `_device()`.  AI
@@ -13,20 +13,63 @@ explicit device.  Two analysis engines:
   I slices through enc/analysis_torch (Baseline) or the 33-mode EIPD
   analysis enc/analysis_main_torch (Main), P and B slices through
   enc/analysis_inter_torch, whose integer ME is the CUDA kernel
-  csrc/me_full_search.cu on the card.  `analysis_calls` counts the frames
-  this engine analysed.
+  csrc/me_full_search.cu on the card.
+- analysis="numpy" (the JAX package's default engine): the exact-integer
+  host oracles enc/analysis_np, enc/analysis_main_np and
+  enc/analysis_inter_np.  It touches no torch device and runs only when a
+  caller names it.  `analysis_calls` counts the frames the "jax" or
+  "numpy" engine analysed.
 
 Main profile (profile=1, the default toolset EIPD, CM_INIT, ADCC, IQT,
-ATS, HTDF, ADDB, and BTT where `btt` is auto-on) runs on both engines:
-its I slices take the EIPD analysis (Main AI streams dispatch `ahead`
-frames of it), its P and B slices the engine's inter analysis.
+ATS, HTDF, ADDB, and BTT where `btt` is auto-on) runs on every engine:
+its I slices take the EIPD analysis (Main AI streams on the "jax" and
+"device" engines dispatch `ahead` frames of it), its P and B slices the
+engine's inter analysis.
 
-The closed-loop coding pass is the native C library (native/xt_core.c).
-Not ported yet, and refused with NotImplementedError: rate control
-(rc_type != "cq"), encoder-side DRA (tool_dra; the decoder decodes DRA
-streams), the numpy coding passes (coder="python": FramePass and the Main
-MainIntraFramePass), the batched all-intra `encode_frames` and the meshed
-sub-GOP analysis `encode_stream_meshed`.
+Coding passes: coder="native" (default), the C library native/xt_core.c;
+coder="numpy", the numpy oracle (enc/frame_pass.FramePass for Baseline
+slices, enc/main_intra_frame.MainIntraFramePass for Main I slices; Main
+P and B slices stay on the C pass, as in the JAX package).
+
+Rate control (rc_type "abr" or "crf", enc/rc.RateControl) picks each
+frame's qp from the rate model: the device engine's packed `rc_cost` is
+the complexity of a dispatched frame, the host `frame_complexity` that
+of the others.  The device engine's AI/LD route keeps a lookahead window
+of scene proxies that shapes the ABR target and inserts a keyframe at a
+hard scene cut (`_force_idr`).  Under RC each frame's qp depends on the
+bits of the frame before it, so RA sub-GOPs code serially and all-intra
+frames do not code in parallel.
+
+Encoder-side DRA (tool_dra): the forward map applies in `_pad_input`,
+once per frame on every route, and the encoder works in the mapped
+domain; the public entry points (`encode_frame`, `encode_stream`,
+`push_frame`, `flush`) return backward-mapped reconstructions.  The JAX
+package does this by replacing those methods on the instance
+(`_wrap_dra_api`), and its dispatch-ahead `encode_stream` routes (Main
+AI; the device engine's LD-P and serially coded AI) map a frame a second
+time when they hand the padded frame back to `encode_frame`
+(xeve_tpu/api.py:938 or :987, then :521).  The port has no instance
+patching: each public entry point is a thin wrapper over a private
+method that takes and returns mapped-domain frames
+(`_encode_frame_mapped`, `_encode_stream`, `_push_frame`, `_flush`), and
+the dispatch-ahead routes hand the frame they already padded to
+`_encode_frame_mapped`, which maps nothing.  Its `encode_stream` streams
+therefore equal the JAX package's single-map `encode_frame` loop
+(tests/test_torch_dra.py).
+
+Checkpoint/resume: state.save_state/load_state (a copy of the JAX
+package's) resume an encode bit-exactly at any frame boundary.  The
+checkpoint does not carry the device analyzer's frame ring: a resumed
+device-engine encode whose next dispatch needs a frame from before the
+cut raises KeyError, as the JAX package's does.
+
+The CLIs are app.py (`python -m xeve_tpu_torch.app`, the twin of
+xeve_tpu_app.py with --device) and dec_app.py.
+
+Still refused with NotImplementedError: the batched all-intra
+`encode_frames` (BatchAnalyzer), the meshed sub-GOP analysis
+`encode_stream_meshed`, and `me_engine` (the JAX package's switch that
+routes the numpy engine's integer ME to the device).
 """
 from __future__ import annotations
 
@@ -41,26 +84,31 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .constants import (NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS, NUT_SEI,
-                        QP_ADAPT_LD, QP_ADAPT_RA16, SLICE_I, SLICE_P, SLICE_B,
-                        chroma_qp_dynamic)
+                        NUT_APS, QP_ADAPT_LD, QP_ADAPT_RA16, SLICE_I, SLICE_P,
+                        SLICE_B, chroma_qp_dynamic)
 from .device import resolve_device
+from .enc.analysis_inter_np import analyze_frame_inter
 from .enc.analysis_inter_torch import analyze_frame_inter_torch
+from .enc.analysis_main_np import analyze_frame_main
 from .enc.analysis_main_torch import (analyze_frame_main_torch,
                                       collect_main_torch, dispatch_main_torch)
+from .enc.analysis_np import analyze_frame
 from .enc.analysis_torch import analyze_frame_torch
 from .enc.device_analyzer import DeviceAnalyzer
 from .enc.frame_native import encode_frame_native
+from .enc.frame_pass import FramePass, PAD_L
 from .enc.intra_frame_native import encode_intra_frame_native
+from .enc.main_intra_frame import MainIntraFramePass
+from .enc.rc import POW_CPLX, RateControl, frame_complexity, scene_proxy
+from .entropy.sbac import SbacEncoder, SbacCtx
 from .hls import SPS, PPS, SliceHeader, NalHeader, wrap_nal
 from .io.bits import BitWriter
 from .ops import mc_np
 from .ops import picman_np
+from .ops.dra_np import apply_dra, build_dra_maps, derive_sig_params
 from .params import EncoderParams
 
 CABAC_ZERO_PARAM = 32
-
-# DPB picture padding (PIC_PAD_SIZE_L): xeve_tpu/enc/frame_pass.py's PAD_L
-PAD_L = 64 + 16
 
 
 @dataclass
@@ -82,26 +130,23 @@ class Encoder:
     GopEncoder)."""
 
     def __init__(self, params: EncoderParams, analysis: str = "jax",
-                 coder: str = "native", device="cuda"):
-        if analysis not in ("jax", "device"):
+                 coder: str = "native", device="cuda", me_engine=None):
+        if analysis not in ("jax", "device", "numpy"):
             raise ValueError(f"unknown analysis engine {analysis!r}")
-        if coder == "python":
-            raise NotImplementedError("the numpy coding pass (FramePass) is "
-                                      "not ported to torch yet")
-        if coder != "native":
+        if coder not in ("native", "numpy"):
             raise ValueError(f"unknown coding pass {coder!r}")
+        if me_engine is not None:
+            raise NotImplementedError("me_engine (the numpy engine's integer "
+                                      "ME on the device) is not ported to "
+                                      "torch yet")
         self.p = params.validate()
         p = self.p
-        if p.rc_type != "cq":
-            raise NotImplementedError(f"rate control {p.rc_type!r} is not "
-                                      "ported to torch yet")
-        if p.tool_dra:
-            raise NotImplementedError("DRA is not ported to torch yet")
         self.device = resolve_device(device)
         if p.btt < 0:
             # auto: BTT on for Main AI with the native coder (stage-2
             # rectangular leaves need the exact-RD trial machinery)
-            p.btt = 1 if (p.profile == 1 and p.keyint == 1 and p.exact_rd
+            p.btt = 1 if (p.profile == 1 and p.keyint == 1
+                          and coder == "native" and p.exact_rd
                           and p.tile_columns * p.tile_rows == 1
                           and not p.aq_mode) else 0
         self.pic_cnt = 0
@@ -109,6 +154,13 @@ class Encoder:
         self.pps = self._make_pps()
         self.analysis_engine = analysis
         self.coder_engine = coder
+        if p.aq_mode and coder != "native":
+            raise ValueError("aq_mode (cu_qp_delta coding) requires the "
+                             "native coding pass")
+        if (coder != "native" and p.ref_pics > 1 and p.keyint != 1
+                and not p.tool_eipd):
+            raise ValueError("multi-ref (ref_pics>1) requires the native "
+                             "coding pass")
         self.analysis_calls = 0
         self._dev = None
         self._code_pool = None     # frame-parallel C-pass workers
@@ -121,6 +173,15 @@ class Encoder:
         self._gop_in = []      # pending display-order frames (RA reordering)
         self._gop_base = 0
         self._first_done = False
+        self._prev_orig_y = None
+        self._fcst = []           # (disp_idx, scene proxy) lookahead ring
+        self._fcst_prev = None    # previous pushed original (proxy base)
+        self._force_idr = set()   # scene-cut keyframe inserts (disp idx)
+        self._dra_maps = None
+        self.rc = None
+        if p.rc_type in ("abr", "crf"):
+            self.rc = RateControl(p.rc_type, p.w, p.h, p.fps, p.bitrate_kbps,
+                                  p.crf, p.qp_min, p.qp_max)
 
     # ------------------------------------------------------------------
     def _make_sps(self) -> SPS:
@@ -169,6 +230,8 @@ class Encoder:
         if p.aq_mode:
             dqp_kw = dict(cu_qp_delta_enabled_flag=1,
                           cu_qp_delta_area=10 if p.profile == 1 else 6)
+        if p.tool_dra:
+            dqp_kw.update(pic_dra_enabled_flag=1, pic_dra_aps_id=0)
         n = p.tile_columns * p.tile_rows
         if n > 1:
             id_len_m1 = 0
@@ -198,6 +261,8 @@ class Encoder:
             sh.entry_point_offsets = [l - 1 for l in tile_lens[:n - 1]]
 
     def _headers(self) -> bytes:
+        if self.p.tool_dra:
+            self._dra_init()
         out = b""
         bw = BitWriter()
         NalHeader(NUT_SPS, 0).write(bw)
@@ -207,12 +272,51 @@ class Encoder:
         NalHeader(NUT_PPS, 0).write(bw)
         self.pps.write(bw, main=self.sps.profile_idc == 1)
         out += wrap_nal(bw.get_bytes())
+        if self.p.tool_dra:
+            # DRA APS (xevem_eco_aps_gen, xevem_eco.c:235)
+            bw = BitWriter()
+            NalHeader(NUT_APS, 0).write(bw)
+            bw.write(0, 5)                   # aps_id
+            bw.write(1, 3)                   # aps_type_id = DRA
+            self._dra_sig.write(bw, self.p.codec_bit_depth)
+            bw.write1(0)                     # aps_extension_flag
+            bw.byte_align()
+            out += wrap_nal(bw.get_bytes())
         return out
+
+    def _dra_init(self):
+        if self._dra_maps is None:
+            p = self.p
+            self._dra_sig = derive_sig_params(
+                p.qp, p.qp_cb_offset, p.qp_cr_offset,
+                num_ranges=p.dra_number_ranges,
+                in_points=[int(t) for t in p.dra_range.split()],
+                scales=[float(t) for t in p.dra_scale.split()],
+                hist_norm=p.dra_hist_norm,
+                bit_depth=p.codec_bit_depth)
+            self._dra_maps = build_dra_maps(self._dra_sig,
+                                            p.codec_bit_depth)
+
+    def _dra_backward(self, rec):
+        """Backward-map an output recon tuple (the DPB copy stays in the
+        mapped domain, like CFG_GET_RECON, xevem.c:1036)."""
+        if not self.p.tool_dra:
+            return rec
+        y, u, v = rec
+        return apply_dra(y, u, v, self._dra_maps, backward=True)
 
     def _pad_input(self, y, u, v):
         """Edge-replicate to the 8-aligned coded size (SPS crop signals the
-        real dimensions)."""
+        real dimensions).  With DRA the forward map applies here, once per
+        input frame — the whole encoder then works in the mapped domain
+        (fn_pic_flt, xeve_enc.c:656)."""
         p = self.p
+        if p.tool_dra:
+            self._dra_init()
+            y, u, v = apply_dra(np.asarray(y, np.int32),
+                                np.asarray(u, np.int32),
+                                np.asarray(v, np.int32),
+                                self._dra_maps, backward=False)
         if p.w == p.w_aligned and p.h == p.h_aligned:
             return (np.asarray(y, np.int32), np.asarray(u, np.int32),
                     np.asarray(v, np.int32))
@@ -228,11 +332,50 @@ class Encoder:
     # ------------------------------------------------------------------
     def _slice_type_for(self, pic_cnt: int) -> int:
         p = self.p
-        if p.keyint == 1 or pic_cnt == 0:
+        if p.keyint == 1 or pic_cnt == 0 or pic_cnt in self._force_idr:
             return SLICE_I
         if p.keyint > 1 and pic_cnt % p.keyint == 0:
             return SLICE_I
         return SLICE_P
+
+    def _rc_qp(self, slice_type: int, depth: int, y,
+               cpx: float | None = None) -> int | None:
+        """Frame qp from the rate model (None without RC).  cpx: complexity
+        from the fused device analysis (AnalysisResult.rc_cost) when it is
+        already available (dispatch-ahead paths); host Hadamard proxy
+        otherwise.  The adaptive-k model is scale-invariant so the two
+        sources can coexist across slice types."""
+        if self.rc is None:
+            return None
+        if cpx is None:
+            cpx = frame_complexity(
+                np.asarray(y),
+                self._prev_orig_y if slice_type != SLICE_I else None)
+        self._rc_cpx = cpx
+        # lookahead-lite forecast: complexity proxies of the frames
+        # already sitting in the dispatch-ahead pipeline, in one shared
+        # proxy domain (ratios only, so the device rc_cost scale of
+        # `cpx` does not matter)
+        cur = [c for (d, c) in self._fcst if d == self.pic_cnt]
+        ahead = [c for (d, c) in self._fcst if d > self.pic_cnt]
+        fr = None
+        if cur and ahead:
+            pows = [max(c, 1.0) ** POW_CPLX for c in [cur[0]] + ahead]
+            fr = pows[0] / max(sum(pows) / len(pows), 1e-6)
+        return self.rc.pick_qp(slice_type, depth, cpx, fcst_ratio=fr)
+
+    def _rc_update(self, slice_type: int, qp: int, nbytes: int):
+        self._last_qp = qp
+        if self.rc is not None:
+            self.rc.update(slice_type, qp, nbytes * 8, self._rc_cpx)
+
+    def _qp_guess(self, slice_type: int) -> int:
+        """QP used for dispatch-ahead analysis.  Exact on the fixed-QP path;
+        with rate control the final QP is re-derived at coding time and the
+        analysis decisions tolerate the small mismatch."""
+        if self.rc is None:
+            return self._slice_qp(slice_type)
+        return getattr(self, "_last_qp", self.p.qp)
 
     def _fill_stat(self, nbytes, nut, slice_type, qp, poc, tid,
                    refp=None, refp1=None, rec=None):
@@ -255,6 +398,9 @@ class Encoder:
             self.p.use_pic_sign = bool(value)
         elif key == "bitrate_kbps":
             self.p.bitrate_kbps = float(value)
+            if self.rc is not None:
+                self.rc.bitrate = float(value) * 1000.0
+                self.rc.bpf = self.rc.bitrate / self.rc.fps
         elif key == "search_range":
             self.p.search_range = int(value)
         else:
@@ -308,9 +454,11 @@ class Encoder:
         dispatch signatures (concurrently, each read back), or the "jax"
         engine's intra and inter analyses, which build the ME kernel at
         first use on the card.  Dummy frames are evicted afterwards.
-        Returns seconds spent."""
+        Returns seconds spent; no-op for the numpy engine."""
         t0 = time.time()
         p = self.p
+        if self.analysis_engine == "numpy":
+            return 0.0
         qp = p.qp
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
         bd = p.codec_bit_depth
@@ -399,19 +547,34 @@ class Encoder:
         return int(np.clip(qp, 0, 51))
 
     def _analyze_intra(self, y, u, v, qp, **kw):
-        """The "jax" engine's intra analysis of one padded frame: the
-        33-mode EIPD analysis for Main, the 5-mode one for Baseline."""
+        """The "jax" or "numpy" engine's intra analysis of one padded
+        frame: the 33-mode EIPD analysis for Main, the 5-mode one for
+        Baseline."""
+        p = self.p
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
         self.analysis_calls += 1
-        analyze = analyze_frame_main_torch if self.p.tool_eipd \
+        if self.analysis_engine == "numpy":
+            y, u, v = (np.asarray(a, np.int32) for a in (y, u, v))
+            if p.tool_eipd:
+                return analyze_frame_main(y, u, v, qp, qp_y, qp_u, qp_v,
+                                          p.codec_bit_depth,
+                                          tool_iqt=p.tool_iqt, **kw)
+            return analyze_frame(y, u, v, qp, qp_y, qp_u, qp_v,
+                                 p.codec_bit_depth, **kw)
+        analyze = analyze_frame_main_torch if p.tool_eipd \
             else analyze_frame_torch
-        return analyze(y, u, v, qp, qp_y, qp_u, qp_v,
-                       self.p.codec_bit_depth, device=self.device, **kw)
+        return analyze(y, u, v, qp, qp_y, qp_u, qp_v, p.codec_bit_depth,
+                       device=self.device, **kw)
 
     def _analyze_inter(self, y, u, v, refp, qp, qp_y, qp_u, qp_v, bd,
                        refp1=None, search_range=16):
-        """The "jax" engine's inter analysis of one padded frame."""
+        """The "jax" or "numpy" engine's inter analysis of one padded
+        frame."""
         self.analysis_calls += 1
+        if self.analysis_engine == "numpy":
+            return analyze_frame_inter(y, u, v, refp, qp, qp_y, qp_u, qp_v,
+                                       bd, refp1=refp1,
+                                       search_range=search_range)
         return analyze_frame_inter_torch(y, u, v, refp, qp, qp_y, qp_u, qp_v,
                                          bd, refp1=refp1,
                                          search_range=search_range,
@@ -421,10 +584,16 @@ class Encoder:
                      analysis_pre=None):
         """Encode one frame (I or low-delay P per keyint).  Inputs are 2-D
         arrays at codec bit depth.  Returns (bitstream_bytes,
-        (rec_y, rec_u, rec_v)).  analysis_pre: decision maps already
-        computed by the pipelined stream path (encode_stream)."""
+        (rec_y, rec_u, rec_v)), the recon backward-mapped under DRA.
+        analysis_pre: decision maps already computed by the caller."""
+        out, rec = self._encode_frame_mapped(*self._pad_input(y, u, v),
+                                             analysis_pre)
+        return out, self._dra_backward(rec)
+
+    def _encode_frame_mapped(self, y, u, v, analysis_pre=None):
+        """encode_frame of a frame that _pad_input has already padded (and
+        DRA-mapped); returns the mapped-domain recon."""
         p = self.p
-        y, u, v = self._pad_input(y, u, v)
         slice_type = self._slice_type_for(self.pic_cnt)
         if slice_type == SLICE_P:
             return self._encode_frame_p(y, u, v, analysis_pre)
@@ -435,7 +604,10 @@ class Encoder:
         if self.pic_cnt == 0 or (nut == NUT_IDR and self.pic_cnt > 0):
             out += self._headers()
 
-        qp = self._slice_qp(slice_type)
+        qp = self._rc_qp(slice_type, 0, y,
+                         cpx=getattr(analysis_pre, "rc_cost", None))
+        if qp is None:
+            qp = self._slice_qp(slice_type)
         bd = p.codec_bit_depth
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
 
@@ -455,6 +627,11 @@ class Encoder:
             analysis = self._analyze_intra(y, u, v, qp,
                                            min_log2=p.min_cu_log2)
 
+        if self.coder_engine == "numpy":
+            slice_payload, bin_count, rec = self._code_i_slice_numpy(
+                y, u, v, qp, analysis)
+            return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
+                                      y, rec)
         slice_payload, bin_count, rec_y, rec_u, rec_v, _tl = \
             encode_intra_frame_native(p.w_aligned, p.h_aligned, bd, qp,
                                       p.qp_cb_offset, p.qp_cr_offset,
@@ -466,13 +643,39 @@ class Encoder:
                                       dquant_flag=self.sps.dquant_flag,
                                       exact_rd=p.exact_rd)
         return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
-                                  (rec_y, rec_u, rec_v))
+                                  y, (rec_y, rec_u, rec_v))
+
+    def _code_i_slice_numpy(self, y, u, v, qp, analysis):
+        """The numpy coding-pass oracle of an I slice: FramePass for
+        Baseline, MainIntraFramePass for Main.  Returns (payload,
+        bin_count, rec)."""
+        p = self.p
+        bd = p.codec_bit_depth
+        sbac = SbacEncoder()
+        if p.tool_eipd:
+            ctx = SbacCtx(SLICE_I, qp, p.tool_cm_init)
+            fp = MainIntraFramePass(p.w_aligned, p.h_aligned, bd, bd - 8, qp,
+                                    p.qp_cb_offset, p.qp_cr_offset,
+                                    use_rdoq=p.rdoq,
+                                    use_deblock=p.use_deblock,
+                                    tool_iqt=p.tool_iqt,
+                                    tool_htdf=p.tool_htdf,
+                                    tool_ats=p.tool_ats,
+                                    tool_addb=p.tool_addb)
+        else:
+            ctx = SbacCtx()
+            fp = FramePass(p.w_aligned, p.h_aligned, bd, bd - 8, qp,
+                           p.qp_cb_offset, p.qp_cr_offset,
+                           use_rdoq=p.rdoq, use_deblock=p.use_deblock)
+        rec_y, rec_u, rec_v, _ = fp.encode(y, u, v, analysis, sbac, ctx)
+        return sbac.finish(), sbac.bin_counter, (rec_y, rec_u, rec_v)
 
     def _encode_frame_i_main(self, y, u, v, nut, out, qp, analysis_pre=None):
         """Main-profile I slice: EIPD + CM_INIT + ADCC + IQT (+ ATS, HTDF,
         ADDB, BTT per the parameters) on the native C pass (quad tree,
-        CTU 64).  Both engines analyse it with the EIPD analysis unless the
-        caller brings decisions (analysis_pre)."""
+        CTU 64) or the numpy MainIntraFramePass.  Every engine analyses it
+        with its EIPD analysis unless the caller brings decisions
+        (analysis_pre)."""
         p = self.p
         bd = p.codec_bit_depth
         if analysis_pre is not None:
@@ -480,6 +683,11 @@ class Encoder:
         else:
             analysis = self._analyze_intra(y, u, v, qp,
                                            min_log2=p.min_cu_log2)
+        if self.coder_engine == "numpy":
+            slice_payload, bin_count, rec = self._code_i_slice_numpy(
+                y, u, v, qp, analysis)
+            return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
+                                      y, rec)
         slice_payload, bin_count, rec_y, rec_u, rec_v, tile_lens = \
             encode_intra_frame_native(p.w_aligned, p.h_aligned, bd, qp,
                                       p.qp_cb_offset, p.qp_cr_offset,
@@ -499,13 +707,14 @@ class Encoder:
                                       tool_addb=p.tool_addb,
                                       sps_btt=p.btt, exact_rd=p.exact_rd)
         return self._emit_i_slice(nut, out, qp, slice_payload, bin_count,
-                                  (rec_y, rec_u, rec_v), tile_lens)
+                                  y, (rec_y, rec_u, rec_v), tile_lens)
 
-    def _emit_i_slice(self, nut, out, qp, slice_payload, bin_count, rec,
+    def _emit_i_slice(self, nut, out, qp, slice_payload, bin_count, y, rec,
                       tile_lens=None):
         """Append a coded I slice to `out` (slice header, entry points when
-        tile_lens is given, stuffing, signature SEI) and its reconstruction
-        to the DPB.  Returns (out, rec)."""
+        tile_lens is given, stuffing, signature SEI), feed its size to the
+        rate model and its reconstruction to the DPB.  y: the slice's
+        padded original.  Returns (out, rec)."""
         p = self.p
         sh = SliceHeader(slice_type=SLICE_I, qp=qp,
                          qp_u_offset=p.qp_cb_offset,
@@ -521,6 +730,8 @@ class Encoder:
         out += wrap_nal(payload)
         if p.use_pic_sign:
             out += self._signature_sei(*rec)
+        self._rc_update(SLICE_I, qp, len(out))
+        self._prev_orig_y = np.asarray(y)
         self._dpb_push(*rec, None)
         self.pic_cnt += 1
         self._fill_stat(len(out), nut, SLICE_I, qp, self.poc - 1, 0, rec=rec)
@@ -550,7 +761,10 @@ class Encoder:
     def _encode_frame_p(self, y, u, v, analysis_pre=None):
         p = self.p
         bd = p.codec_bit_depth
-        qp = self._slice_qp(SLICE_P)
+        qp = self._rc_qp(SLICE_P, 2, y,
+                         cpx=getattr(analysis_pre, "rc_cost", None))
+        if qp is None:
+            qp = self._slice_qp(SLICE_P)
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
         refp, _ = picman_np.build_ref_lists(
             self.dpb, self.poc, 0, SLICE_B, SLICE_P, SLICE_P,
@@ -586,6 +800,8 @@ class Encoder:
         out = wrap_nal(payload)
         if p.use_pic_sign:
             out += self._signature_sei(rec_y, rec_u, rec_v)
+        self._rc_update(SLICE_P, qp, len(out))
+        self._prev_orig_y = np.asarray(y)
         self._dpb_push(rec_y, rec_u, rec_v, map_mv)
         self.pic_cnt += 1
         self._fill_stat(len(out), NUT_NONIDR, SLICE_P, qp, self.poc - 1, 0,
@@ -594,9 +810,27 @@ class Encoder:
 
     def _code_slice(self, slice_type, poc, qp, y, u, v, an, refp, refp1,
                     aq_map=None):
-        """Run the closed-loop slice coding pass (native C).  Returns
-        (payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens)."""
+        """Run the closed-loop slice coding pass (native C fast path or the
+        numpy FramePass oracle).  Returns (payload, bin_count, rec_y, rec_u,
+        rec_v, map_mv, tile_lens)."""
         p = self.p
+        if self.coder_engine == "numpy" and not p.tool_eipd:
+            # Main-tool P/B slices run natively only (the numpy FramePass
+            # oracle covers the Baseline toolset; __init__ refuses AQ and
+            # multi-ref with it)
+            sbac = SbacEncoder()
+            fp = FramePass(p.w_aligned, p.h_aligned, p.codec_bit_depth,
+                           p.codec_bit_depth - 8, qp,
+                           p.qp_cb_offset, p.qp_cr_offset,
+                           slice_type=slice_type, refp=refp, refp1=refp1,
+                           poc=poc, use_rdoq=p.rdoq,
+                           use_deblock=p.use_deblock)
+            rec_y, rec_u, rec_v, _ = fp.encode(np.asarray(y, np.int32),
+                                               np.asarray(u, np.int32),
+                                               np.asarray(v, np.int32), an,
+                                               sbac, SbacCtx())
+            return (sbac.finish(), sbac.bin_counter, rec_y, rec_u, rec_v,
+                    fp.map_mv, None)
         payload, bin_count, rec_y, rec_u, rec_v, map_mv, _refi, tl = \
             encode_frame_native(p.w_aligned, p.h_aligned, p.codec_bit_depth,
                                 qp, p.qp_cb_offset, p.qp_cr_offset,
@@ -635,20 +869,28 @@ class Encoder:
 
     def encode_stream(self, frames, ahead: int = 3):
         """Encode an iterable of (y, u, v) frames; yields (bitstream_bytes,
-        (rec_y, rec_u, rec_v), poc) per frame in display order (AI/LD).
+        (rec_y, rec_u, rec_v), poc) per frame, the recon backward-mapped
+        under DRA: display order for AI/LD, coding order for RA GOP16
+        (GopEncoder).
 
         With the device analysis engine the fused analysis of up to `ahead`
         future frames runs on the device while the native C pass codes the
         current frame (analysis references *original* frames, so it never
         waits for reconstruction).
         """
+        for bs, rec, poc in self._encode_stream(frames, ahead):
+            yield bs, self._dra_backward(rec), poc
+
+    def _encode_stream(self, frames, ahead):
+        """encode_stream with mapped-domain reconstructions (AI/LD)."""
         p = self.p
-        if p.tool_eipd and p.keyint == 1:
+        if (p.tool_eipd and p.keyint == 1
+                and self.analysis_engine in ("jax", "device")):
             yield from self._encode_stream_main_ai(frames, ahead)
             return
         if self.analysis_engine != "device":
-            for (y, u, v) in frames:
-                bs, rec = self.encode_frame(y, u, v)
+            for fr in frames:
+                bs, rec = self._encode_frame_mapped(*self._pad_input(*fr))
                 yield bs, rec, self.poc - 1
             return
         dev = self._device()
@@ -658,7 +900,9 @@ class Encoder:
         # all-intra frames are fully independent: run their closed-loop C
         # passes on the frame-worker pool (emission stays serial, so the
         # bitstream is identical to the serial path)
-        par_ai = p.keyint == 1 and self._frame_workers() > 1
+        par_ai = (p.keyint == 1 and self.rc is None
+                  and self.coder_engine == "native"
+                  and self._frame_workers() > 1)
         if par_ai and self._code_pool is None:
             self._code_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=self._frame_workers(),
@@ -679,8 +923,21 @@ class Encoder:
         def dispatch(fr):
             nonlocal disp
             y, u, v = self._pad_input(*fr)
+            # lookahead-lite: per-frame complexity proxy feeding the RC
+            # forecast window + scene-cut keyframe insertion
+            # (xeve_fcst.c:106 scene type analog)
+            px = scene_proxy(np.asarray(y), self._fcst_prev)
+            self._fcst_prev = np.asarray(y)
+            hist = [c for (_d, c) in self._fcst[-8:]]
+            if (self.rc is not None and p.keyint != 1 and disp > 0
+                    and len(hist) >= 2
+                    and px > 6.0 * max(np.mean(hist), 1.0)):
+                self._force_idr.add(disp)
+            self._fcst.append((disp, px))
+            if len(self._fcst) > 32:
+                del self._fcst[:-32]
             st = self._slice_type_for(disp)
-            qp = self._slice_qp(st)
+            qp = self._qp_guess(st)
             qp_y, qp_u, qp_v = self._qp_triplet(qp)
             dev.put_frame(disp, y, u, v)
             ref = ref0b = None
@@ -711,10 +968,11 @@ class Encoder:
                 if self.pic_cnt == 0 or nut == NUT_IDR:
                     out += self._headers()
                 out, rec = self._emit_i_slice(nut, out, qp, payload,
-                                              bin_count,
+                                              bin_count, yuv[0],
                                               (rec_y, rec_u, rec_v))
                 return out, rec, self.poc - 1
-            bs, rec = self.encode_frame(*yuv, analysis_pre=dev.collect(hd))
+            bs, rec = self._encode_frame_mapped(*yuv,
+                                                analysis_pre=dev.collect(hd))
             if p.closed_loop_ld:
                 # swap the coded frame's ring entry for its reconstruction
                 # so the NEXT P frame's ME references decoded pixels (the
@@ -738,22 +996,23 @@ class Encoder:
             yield code_next()
 
     def _encode_stream_main_ai(self, frames, ahead):
-        """Main AI with either engine: the EIPD analyses of up to `ahead`
-        future frames are enqueued on the device (dispatch_main_torch makes
-        no host readback) while the native C pass codes the current
-        frame."""
+        """Main AI on the "jax" or "device" engine: the EIPD analyses of up
+        to `ahead` future frames are enqueued on the device
+        (dispatch_main_torch makes no host readback) while the C pass codes
+        the current frame.  Under RC an analysis runs at the qp of the
+        last coded frame (_qp_guess)."""
         p = self.p
         pending = deque()
 
         def code_next():
             yuv, hd = pending.popleft()
-            bs, rec = self.encode_frame(*yuv,
-                                        analysis_pre=collect_main_torch(hd))
+            bs, rec = self._encode_frame_mapped(
+                *yuv, analysis_pre=collect_main_torch(hd))
             return bs, rec, self.poc - 1
 
         for fr in frames:
             y, u, v = self._pad_input(*fr)
-            qp = self._slice_qp(SLICE_I)
+            qp = self._qp_guess(SLICE_I)
             hd = dispatch_main_torch(y, u, v, qp, *self._qp_triplet(qp),
                                      p.codec_bit_depth,
                                      min_log2=p.min_cu_log2,
@@ -812,9 +1071,21 @@ class GopEncoder(Encoder):
     degenerates to streaming I/P when bframes == 0."""
 
     def push_frame(self, y, u, v):
+        """Push one display-order frame; returns the [(bs, rec, poc)] it
+        completes, the recon backward-mapped under DRA."""
+        return [(bs, self._dra_backward(rec), poc)
+                for bs, rec, poc in self._push_frame(y, u, v)]
+
+    def flush(self):
+        """Code the frames still buffered; returns [(bs, rec, poc)] as
+        push_frame does."""
+        return [(bs, self._dra_backward(rec), poc)
+                for bs, rec, poc in self._flush()]
+
+    def _push_frame(self, y, u, v):
         p = self.p
         if p.bframes < 15 or p.keyint == 1:
-            bs, rec = self.encode_frame(y, u, v)
+            bs, rec = self._encode_frame_mapped(*self._pad_input(y, u, v))
             return [(bs, rec, self.poc - 1)]
         self._gop_in.append(self._pad_input(y, u, v))
         out = []
@@ -847,7 +1118,7 @@ class GopEncoder(Encoder):
             out.append((poc, disp, tid, is_ref))
         return out
 
-    def flush(self):
+    def _flush(self):
         """Encode trailing frames as a truncated sub-GOP: the hierarchical
         coding order restricted to existing display pocs, coded under the
         decoder-derived POCs (_ra_order_derived).  With the device engine
@@ -868,7 +1139,8 @@ class GopEncoder(Encoder):
             shadow = self._shadow_dpb()
             for (poc, disp, tid, is_ref) in order:
                 depth = 1 if disp % 16 == 0 else tid + 1
-                qp = self._ra_qp(depth)
+                qp = self._ra_qp(depth) if self.rc is None \
+                    else self._qp_guess(SLICE_B)
                 qp_y, qp_u, qp_v = self._qp_triplet(qp)
                 ref0, ref0b, ref1, ref1b = self._predict_refs(shadow, dev,
                                                               poc, tid, base)
@@ -903,19 +1175,19 @@ class GopEncoder(Encoder):
         self._gop_in = self._gop_in[-1:]
         return out
 
-    def encode_stream(self, frames, ahead: int = 3):
+    def _encode_stream(self, frames, ahead):
         """RA GOP16 stream encode, coding order (bs, rec, poc) per frame.
         With the device engine all 16 analyses of a sub-GOP are dispatched
         up front (ME against originals; hierarchical refs L0 = poc - lowbit,
         L1 = poc + lowbit) and the native coding pass overlaps them."""
         p = self.p
         if p.bframes < 15 or p.keyint == 1:
-            yield from super().encode_stream(frames, ahead)
+            yield from super()._encode_stream(frames, ahead)
             return
         if self.analysis_engine != "device":
             for fr in frames:
-                yield from self.push_frame(*fr)
-            yield from self.flush()
+                yield from self._push_frame(*fr)
+            yield from self._flush()
             return
         dev = self._device()
         for fr in frames:
@@ -934,7 +1206,7 @@ class GopEncoder(Encoder):
                 continue
             if len(self._gop_in) == 17:
                 yield from self._encode_subgop_pipelined(dev)
-        yield from self.flush()
+        yield from self._flush()
 
     def _encode_subgop_pipelined(self, dev):
         base = self._gop_base
@@ -947,7 +1219,8 @@ class GopEncoder(Encoder):
         frozen_lists = {}
         for (poc, disp, tid, is_ref) in order:
             depth = 1 if disp % 16 == 0 else tid + 1
-            qp = self._ra_qp(depth)
+            qp = self._ra_qp(depth) if self.rc is None \
+                else self._qp_guess(SLICE_B)
             qp_y, qp_u, qp_v = self._qp_triplet(qp)
             # freeze the coding-time ref list STRUCTURE from the shadow DPB
             # (identical derivation to the _encode_ra_frame call); the
@@ -965,7 +1238,10 @@ class GopEncoder(Encoder):
             handles.append((poc, disp, tid, is_ref, hd, ref0, ref1, qp))
             picman_np.dpb_mark_and_insert(
                 shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
-        if self.p.aq_mode < 2 and self._frame_workers() > 1:
+        # with RC each frame's qp depends on the bits of the one before it,
+        # so the sub-GOP codes serially
+        if (self.rc is None and self.p.aq_mode < 2
+                and self._frame_workers() > 1):
             yield from self._code_subgop_parallel(dev, handles, frozen_lists,
                                                   base)
             return
@@ -1044,7 +1320,8 @@ class GopEncoder(Encoder):
             }
             return {"payload": payload, "bin_count": bin_count,
                     "rec": (rec_y, rec_u, rec_v), "entry": entry,
-                    "tile_lens": tile_lens, "l0p": l0p, "l1p": l1p}
+                    "tile_lens": tile_lens, "y": y,
+                    "l0p": l0p, "l1p": l1p}
 
         # dependency-gated submission: a task is handed to the pool only
         # once every ref it needs is reconstructed, so workers NEVER block
@@ -1095,6 +1372,8 @@ class GopEncoder(Encoder):
             rec_y, rec_u, rec_v = r["rec"]
             if p.use_pic_sign:
                 out += self._signature_sei(rec_y, rec_u, rec_v)
+            self._rc_update(SLICE_B, qp, len(out))
+            self._prev_orig_y = r["y"]
             picman_np.dpb_mark_and_insert(self.dpb, r["entry"], False)
             self.pic_cnt += 1
             self.last_stat = Stat(
@@ -1152,7 +1431,10 @@ class GopEncoder(Encoder):
             depth = 1
         else:
             depth = tid + 1
-        qp = self._ra_qp(depth) if p.bframes >= 15 else self._slice_qp(slice_type)
+        qp = self._rc_qp(slice_type, depth, y,
+                         cpx=getattr(analysis_pre, "rc_cost", None))
+        if qp is None:
+            qp = self._ra_qp(depth) if p.bframes >= 15 else self._slice_qp(slice_type)
         qp_y, qp_u, qp_v = self._qp_triplet(qp)
 
         refp, refp1 = picman_np.build_ref_lists(
@@ -1212,6 +1494,8 @@ class GopEncoder(Encoder):
         out += wrap_nal(payload)
         if p.use_pic_sign:
             out += self._signature_sei(rec_y, rec_u, rec_v)
+        self._rc_update(slice_type, qp, len(out))
+        self._prev_orig_y = y
         self._dpb_push(rec_y, rec_u, rec_v, map_mv, poc=poc, tid=tid,
                        is_ref=is_ref, is_idr=(nut == NUT_IDR),
                        list0_poc=refp[0]["poc"] if refp else poc)
