@@ -71,10 +71,31 @@ the CLIs and the numpy coder:
      LD-P (device engine), a resumed "jax"-engine LD-P equal to the
      unbroken encode, coder="numpy" LD-P equal to the native pass, and the
      CLI's recon equal to dec_app's output.
+then the last device graphs and switches, at 1920x1088, QP 32, preset
+medium:
+ 25. BatchAnalyzer on the card, a batch of 4: modes and splits equal the
+     card's single-frame analysis, agree with the CPU's on >= 0.99 of the
+     blocks of each level; one batch against 4 single-frame calls
+     (synchronised host clock);
+ 26. Encoder(analysis="jax").encode_frames, 8 AI frames in batches of 4:
+     fps, kbps, PSNR-Y, the C pass's share of the wall; the same frames
+     through the encode_frame loop in the same call (equal bytes);
+ 27. me_engine="pallas" on the numpy engine: numpy integer_me's host time
+     against the kernel route's on one 1080p pair (MV fields identical),
+     then an LD-P encode of 2 frames (1 ME launch): the numpy host
+     analysis takes minutes per 1080p frame, so the encode is cut from 3
+     frames and its I frame takes the card's intra decisions;
+ 28. encode_stream_meshed, 17 frames, on make_mesh() and on the mesh
+     [cuda:0, cuda:0] (15 B frames padded to 16): each stream byte-equal
+     to phase 12's; fps;
+ 29. round trip at 128x64 on the card: encode_frames on the "jax" and
+     numpy engines, the numpy engine with me_engine "pallas" and None
+     (equal streams), encode_stream_meshed, graft_entry.entry() against
+     the CPU's, and graft_entry.dryrun_multichip(2).
 The ME kernel's launch count is set to 0 before each of phases 5, 6, 16,
-17, 19 and 20 and read after it (2, 31, 0, 31, 0 and 31 launches; the
-device engine and Main AI do not launch it); the record sums phases 5, 6,
-17 and 20.
+17, 19, 20 and 27 and read after it (2, 31, 0, 31, 0, 31 and 1 launches;
+the device engine and Main AI do not launch it); the record sums phases
+5, 6, 17, 20 and 27.
 Every phase runs on the port's own modules: neither jax nor the JAX
 package xeve_tpu is imported.
 The last three lines are the run's wall time, the kernel record and
@@ -486,7 +507,8 @@ def _c_pass_share(spans, t0, t1):
 
 
 def phase_device_encode(label, cls, params, frames, **kw):
-    """A device-engine encode; returns its kbps at 30 fps."""
+    """A device-engine encode; returns its kbps at 30 fps and its
+    stream."""
     import numpy as np
     enc = cls(params, analysis="device", device="cuda")
     # time every P/B-slice C pass (frame-parallel ones run on worker
@@ -513,7 +535,7 @@ def phase_device_encode(label, cls, params, frames, **kw):
           + ("; P/B C passes: {:.3f} of the wall busy, mean concurrency "
              "{:.3f}".format(*_c_pass_share(spans, t0, t1)) if spans
              else ""), flush=True)
-    return nbytes * 8 * 30.0 / n / 1000.0
+    return nbytes * 8 * 30.0 / n / 1000.0, [bs for bs, _rec, _poc in out]
 
 
 def _main_qps():
@@ -847,6 +869,217 @@ def phase_round_trips_5(Encoder, GopEncoder, EncoderParams, small):
           f"output", flush=True)
 
 
+def phase_batch_analyzer(frames):
+    """BatchAnalyzer at 1080p on the card: equal to the single-frame
+    analysis, close to the CPU's, timed against 4 single-frame calls."""
+    import numpy as np
+    import torch
+    from xeve_tpu_torch.constants import chroma_qp_dynamic
+    from xeve_tpu_torch.enc.analysis_torch import BatchAnalyzer, \
+        analyze_frame_torch
+    qps = (QP, QP + 12, chroma_qp_dynamic(QP) + 12,
+           chroma_qp_dynamic(QP) + 12)
+    ba = BatchAnalyzer(W, H, *qps, device="cuda")
+    res = ba.analyze(frames)                               # warm
+    single = [analyze_frame_torch(*f, *qps, 10, device="cuda")
+              for f in frames]
+    t0 = time.perf_counter()
+    cpu = BatchAnalyzer(W, H, *qps, device="cpu").analyze(frames)
+    t_cpu = time.perf_counter() - t0
+    worst = {}
+    for a, one, c in zip(res, single, cpu):
+        for lg in range(2, 7):
+            assert np.array_equal(a.mode[lg], one.mode[lg]) and \
+                np.array_equal(a.split[lg], one.split[lg]), \
+                f"level {lg}: batch differs from the single-frame analysis"
+            m = float((a.mode[lg] == c.mode[lg]).mean())
+            s = float((a.split[lg] == c.split[lg]).mean())
+            worst[lg] = min(worst.get(lg, 1.0), m, s)
+            assert m >= AGREE_MIN and s >= AGREE_MIN, \
+                f"level {lg}: card vs CPU mode {m:.5f} split {s:.5f}"
+
+    def timed(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return sorted(ts)[1]
+
+    t_batch = timed(lambda: ba.analyze(frames))
+    t_single = timed(lambda: [analyze_frame_torch(*f, *qps, 10,
+                                                  device="cuda")
+                              for f in frames])
+    print(f"phase 25 BatchAnalyzer: {len(frames)} frames {W}x{H} on the "
+          f"card: modes and splits equal the single-frame analysis; card vs "
+          f"CPU lowest agreement per level "
+          + ", ".join(f"lg{lg} {v:.5f}" for lg, v in worst.items())
+          + f" (>= {AGREE_MIN}); one batch {t_batch:.1f} ms against "
+          f"{len(frames)} single-frame calls {t_single:.1f} ms (median of 3, "
+          f"host clock, synchronised); the CPU batch {t_cpu:.1f} s",
+          flush=True)
+
+
+def phase_encode_frames(Encoder, EncoderParams, frames):
+    """encode_frames on the "jax" engine (BatchAnalyzer) against the
+    encode_frame loop on the same frames: equal bytes; fps, rate, PSNR-Y
+    and the C pass's share of the wall."""
+    import numpy as np
+    from xeve_tpu_torch import api
+    from xeve_tpu_torch.enc.analysis_torch import BatchAnalyzer
+    params = dict(w=W, h=H, qp=QP, keyint=1, preset="medium")
+    enc = Encoder(EncoderParams(**params), device="cuda")
+    with _Spans(api, "encode_intra_frame_native") as s_c, \
+            _Spans(BatchAnalyzer, "analyze") as s_a:
+        t0 = time.perf_counter()
+        out = enc.encode_frames(frames, batch=4)
+        t1 = time.perf_counter()
+    share = _c_pass_share(s_c.spans, t0, t1)[0]
+    loop = Encoder(EncoderParams(**params), device="cuda")
+    t2 = time.perf_counter()
+    ref = [loop.encode_frame(*f) for f in frames]
+    t3 = time.perf_counter()
+    assert [bs for bs, _r in out] == [bs for bs, _r in ref], \
+        "encode_frames differs from the encode_frame loop"
+    fps, kbps, psnr = _rate_line(frames, [(bs, rec, i) for i, (bs, rec)
+                                          in enumerate(out)], t1 - t0)
+    print(f"phase 26 encode_frames: {len(out)} AI frames {W}x{H}, batch 4, "
+          f"\"jax\" engine in {t1 - t0:.3f} s = {fps:.4f} fps, {kbps:.1f} "
+          f"kbps at 30 fps, PSNR-Y {psnr:.3f} dB; host clock: C pass "
+          f"{s_c.total():.3f} s busy for {share:.3f} of the wall, "
+          f"BatchAnalyzer {s_a.total():.3f} s on its thread; the "
+          f"encode_frame loop {t3 - t2:.3f} s = {len(frames) / (t3 - t2):.4f} "
+          f"fps (same bytes), ratio {(t3 - t2) / (t1 - t0):.3f}", flush=True)
+    return fps
+
+
+def phase_me_engine(Encoder, EncoderParams, frames, me_cuda):
+    """me_engine="pallas" on the numpy engine: the numpy search against
+    the kernel route on one 1080p pair, then a 2-frame LD-P encode."""
+    import numpy as np
+    import torch
+    from xeve_tpu_torch.enc.analysis_inter_np import integer_me
+    from xeve_tpu_torch.ops import mc_np
+    cur = np.asarray(frames[1][0], np.int32)
+    ref_pad = mc_np.pad_picture(np.asarray(frames[0][0], np.int32), PAD)
+    t0 = time.perf_counter()
+    mv0, cost0 = integer_me(cur, ref_pad, PAD, 16)
+    t_np = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    me_cuda.integer_me_np(cur, ref_pad, PAD, 16, device=dev)   # warm
+    ts = []
+    for _ in range(5):
+        t = time.perf_counter()
+        mv, cost = me_cuda.integer_me_np(cur, ref_pad, PAD, 16, device=dev)
+        ts.append((time.perf_counter() - t) * 1e3)
+    assert np.array_equal(mv, mv0) and np.array_equal(cost, cost0), \
+        "kernel route and numpy integer_me disagree"
+    print(f"phase 27 me_engine: one {W}x{H} pair, R=16: numpy integer_me "
+          f"{t_np:.3f} s on the host, the kernel route (upload, kernel, "
+          f"download) {sorted(ts)[2]:.2f} ms (median of 5, host clock), MV "
+          f"fields and costs identical", flush=True)
+    # the LD-P encode: the I frame takes the card's intra decisions
+    # (analysis_pre), so the numpy host analysis runs for the P frame only
+    from xeve_tpu_torch import api
+    from xeve_tpu_torch.constants import SLICE_I
+    from xeve_tpu_torch.enc.analysis_torch import analyze_frame_torch
+    enc = Encoder(EncoderParams(w=W, h=H, qp=QP, keyint=0, preset="medium"),
+                  analysis="numpy", me_engine="pallas", device="cuda")
+    qp_i = enc._slice_qp(SLICE_I)
+    an0 = analyze_frame_torch(*enc._pad_input(*frames[0]), qp_i,
+                              *enc._qp_triplet(qp_i), 10, device="cuda")
+    me_cuda.LAUNCHES = 0
+    with _Spans(enc, "_analyze_inter") as s_a, \
+            _Spans(api, "encode_intra_frame_native") as s_ci, \
+            _Spans(enc, "_code_slice") as s_cs:
+        t0 = time.perf_counter()
+        out = [(*enc.encode_frame(*frames[0], analysis_pre=an0), 0),
+               (*enc.encode_frame(*frames[1]), 1)]
+        dt = time.perf_counter() - t0
+    n_launch = me_cuda.LAUNCHES
+    assert n_launch == 1, f"{n_launch} ME kernel launches, expected 1"
+    assert enc.analysis_calls == 1 and enc.analysis_engine == "numpy"
+    fps, kbps, psnr = _rate_line(frames[:2], out, dt)
+    print(f"phase 27 numpy engine, me_engine pallas, LD-P: 2 frames {W}x{H} "
+          f"(the I frame on the card's decisions) in {dt:.3f} s = "
+          f"{fps:.4f} fps, {kbps:.1f} kbps at 30 fps, PSNR-Y {psnr:.3f} dB, "
+          f"ME kernel launches {n_launch}; host clock: numpy P analysis "
+          f"{s_a.total():.3f} s, C pass {s_ci.total() + s_cs.total():.3f} s "
+          f"of the {dt:.3f} s wall", flush=True)
+    return n_launch
+
+
+def phase_meshed(GopEncoder, EncoderParams, frames, ref_stream):
+    """encode_stream_meshed on make_mesh() and on [cuda:0, cuda:0]: each
+    stream byte-equal to phase 12's."""
+    import torch
+    from xeve_tpu_torch.parallel.mesh import make_mesh
+    meshes = {"make_mesh()": make_mesh(),
+              "[cuda:0, cuda:0]": [torch.device("cuda", 0)] * 2}
+    parts = []
+    for name, mesh in meshes.items():
+        enc = GopEncoder(EncoderParams(w=W, h=H, qp=QP, keyint=0,
+                                       bframes=15, preset="medium"),
+                         analysis="device", device="cuda")
+        t0 = time.perf_counter()
+        out = list(enc.encode_stream_meshed(iter(frames), mesh))
+        dt = time.perf_counter() - t0
+        assert [bs for bs, _r, _p in out] == ref_stream, \
+            f"meshed stream on {name} differs from phase 12's"
+        assert enc._device().failures == 0
+        parts.append(f"{name} ({len(mesh)} entries) {len(out) / dt:.4f} fps "
+                     f"in {dt:.3f} s")
+    print(f"phase 28 meshed: RA GOP16 {len(frames)} frames {W}x{H}, streams "
+          f"byte-equal to phase 12's ({sum(len(b) for b in ref_stream)} "
+          f"bytes): " + "; ".join(parts), flush=True)
+
+
+def phase_round_trips_6(Encoder, GopEncoder, EncoderParams, small):
+    """128x64 round trips of this slice's routes on the card."""
+    import numpy as np
+    import torch
+    from xeve_tpu_torch import graft_entry
+    from xeve_tpu_torch.parallel.mesh import make_mesh
+    for engine in ("jax", "numpy"):
+        out = Encoder(EncoderParams(w=128, h=64, qp=QP, keyint=1),
+                      analysis=engine, device="cuda") \
+            .encode_frames(small[:5], batch=2)
+        _assert_decodes(f"encode_frames {engine}",
+                        [(bs, rec, i) for i, (bs, rec) in enumerate(out)], 5)
+    streams = []
+    for me_engine in ("pallas", None):
+        out = list(Encoder(EncoderParams(w=128, h=64, qp=QP, keyint=0),
+                           analysis="numpy", me_engine=me_engine,
+                           device="cuda").encode_stream(iter(small[:4])))
+        _assert_decodes(f"numpy engine me_engine {me_engine}", out, 4)
+        streams.append([bs for bs, _r, _p in out])
+    assert streams[0] == streams[1], "me_engine pallas differs from None"
+    out = list(GopEncoder(EncoderParams(w=128, h=64, qp=QP, keyint=0,
+                                        bframes=15),
+                          analysis="device", device="cuda")
+               .encode_stream_meshed(iter(small),
+                                     [torch.device("cuda", 0)] * 2))
+    _assert_decodes("meshed RA", out, len(small))
+    fn, args = graft_entry.entry()
+    mode, cost = (t.cpu().numpy() for t in fn(*args))
+    cfn, cargs = graft_entry.entry(device="cpu")
+    cmode, ccost = (t.numpy() for t in cfn(*cargs))
+    agree = float((mode == cmode).mean())
+    assert mode.shape == (8, 8) and np.isfinite(cost).all()
+    assert agree >= 0.98 and np.allclose(cost, ccost, rtol=1e-5), \
+        f"graft entry: card vs CPU modes {agree:.4f}"
+    graft_entry.dryrun_multichip(2)
+    print(f"phase 29 round trip: encode_frames (\"jax\", numpy; 5), the "
+          f"numpy engine LD-P with me_engine pallas and None (4, equal "
+          f"streams), meshed RA on [cuda:0, cuda:0] ({len(small)}) at 128x64 "
+          f"decode bit-exactly; graft_entry.entry() on the card: modes "
+          f"agree with the CPU's on {agree:.4f} of the blocks, costs to "
+          f"rtol 1e-5; dryrun_multichip(2) on make_mesh(2) = "
+          f"{len(make_mesh(2))} card(s) passed", flush=True)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -909,7 +1142,7 @@ def main():
     phase_device_encode("phase 11 LD-P", Encoder,
                         EncoderParams(w=W, h=H, qp=QP, keyint=0,
                                       preset="medium"), frames[:8], ahead=3)
-    ra_kbps = phase_device_encode(
+    ra_kbps, ra_stream = phase_device_encode(
         "phase 12 RA", GopEncoder,
         EncoderParams(w=W, h=H, qp=QP, keyint=0, bframes=15,
                       preset="medium"), frames)
@@ -952,6 +1185,16 @@ def main():
     phase_dra_main_ai(Encoder, EncoderParams, frames[0])
     phase_cli(target)
     phase_round_trips_5(Encoder, GopEncoder, EncoderParams, small)
+
+    # the last device graphs and switches: BatchAnalyzer + encode_frames,
+    # me_engine on the numpy engine, the meshed RA sub-GOP analysis
+    phase_batch_analyzer(frames[:4])
+    phase_encode_frames(Encoder, EncoderParams, frames[:8])
+    launches += phase_me_engine(Encoder, EncoderParams, frames, me_cuda)
+    me_cuda.LAUNCHES = 0
+    phase_meshed(GopEncoder, EncoderParams, frames, ra_stream)
+    assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
+    phase_round_trips_6(Encoder, GopEncoder, EncoderParams, small)
     assert not any(m.split(".")[0] in ("jax", "xeve_tpu")
                    for m in sys.modules), "the port imported jax or xeve_tpu"
 

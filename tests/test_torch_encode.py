@@ -105,13 +105,25 @@ def test_unported_configurations_raise(kw):
 
 
 def test_unported_entry_points_raise():
+    """encode_frames and encode_stream_meshed, refused before the port had
+    them, now encode, and their streams decode to their reconstructions
+    (test_torch_batch.py and test_torch_mesh.py hold them to the JAX
+    package)."""
+    from xeve_tpu_torch.parallel.mesh import make_mesh
+    enc = torch_api.Encoder(EncoderParams(w=64, h=64, keyint=1),
+                            device="cpu")
+    frames = _ra_frames(3, 64, 64)
+    out = enc.encode_frames(frames, batch=2)
+    _assert_decodes(b"".join(bs for bs, _r in out),
+                    {i: rec for i, (_bs, rec) in enumerate(out)})
     enc = torch_api.GopEncoder(EncoderParams(w=64, h=64, bframes=15),
-                               device="cpu")
-    frames = _ra_frames(2, 64, 64)
-    with pytest.raises(NotImplementedError):
-        enc.encode_frames(frames)
-    with pytest.raises(NotImplementedError):
-        list(enc.encode_stream_meshed(iter(frames), mesh=None))
+                               analysis="device", device="cpu")
+    out = list(enc.encode_stream_meshed(iter(frames),
+                                        mesh=make_mesh(2, "cpu")))
+    dec = BaselineIntraDecoder().decode(b"".join(bs for bs, _r, _p in out))
+    assert len(out) == len(dec) == 3
+    for f, (_bs, rec, _poc) in zip(dec, out):         # coding order
+        assert np.array_equal(f.y, rec[0]) and np.array_equal(f.u, rec[1])
 
 
 def test_unported_coders_raise():

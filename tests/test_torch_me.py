@@ -13,7 +13,7 @@ from conftest import DATA, load_yuv8
 from xeve_tpu.enc.analysis_inter_np import integer_me
 from xeve_tpu.enc.me_jax import integer_me_jax
 from xeve_tpu.ops import mc_np
-from xeve_tpu_torch.enc.me_torch import integer_me_plain, integer_me_torch
+from xeve_tpu_torch.enc.me_torch import integer_me_plain
 from xeve_tpu_torch.ops import me_cuda
 
 # One intra-op thread: the test workers share the CPU, and torch's
@@ -51,7 +51,7 @@ def test_plain_me_equals_oracle_and_jax(case, R):
     ref_pad = mc_np.pad_picture(ref, PAD)
     mv_np, sad_np = integer_me(cur, ref_pad, PAD, R)
     mv_jx, sad_jx = integer_me_jax(cur, ref_pad, PAD, R)
-    mv_t, sad_t = integer_me_torch(cur, ref_pad, PAD, R, device="cpu")
+    mv_t, sad_t = me_cuda.integer_me_np(cur, ref_pad, PAD, R, device="cpu")
     assert mv_t.dtype == np.int32 and sad_t.dtype == np.int64
     assert np.array_equal(mv_t, mv_np) and np.array_equal(sad_t, sad_np)
     assert np.array_equal(mv_t, mv_jx) and np.array_equal(sad_t, sad_jx)

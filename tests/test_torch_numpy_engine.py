@@ -79,6 +79,12 @@ def test_numpy_engine_runs_no_torch_op(monkeypatch):
 
 
 def test_me_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="me_engine"):
+    """me_engine is ported (test_torch_me_engine.py): None, "numpy", "jax"
+    and "pallas" construct; an unknown name is refused, as an unknown coder
+    is."""
+    for me_engine in (None, "numpy", "jax", "pallas"):
         torch_api.Encoder(EncoderParams(w=64, h=64), analysis="numpy",
-                          me_engine="pallas", device="cpu")
+                          me_engine=me_engine, device="cpu")
+    with pytest.raises(ValueError, match="me_engine"):
+        torch_api.Encoder(EncoderParams(w=64, h=64), analysis="numpy",
+                          me_engine="cuda", device="cpu")

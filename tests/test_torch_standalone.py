@@ -103,6 +103,69 @@ def test_port_encodes_and_decodes_without_jax_package(engine, gop):
     assert r.stdout.startswith("ok ")
 
 
+ROUTES_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["xeve_tpu"] = None
+import numpy as np
+from tools.gen_test_content import gen_frame
+from xeve_tpu_torch import api, graft_entry
+from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
+from xeve_tpu_torch.params import EncoderParams
+from xeve_tpu_torch.parallel.mesh import make_mesh
+
+def frames(n):
+    out = []
+    for t in range(n):
+        y, u, v = gen_frame(64, 64, t)
+        out.append((y.astype(np.int16) << 2, u.astype(np.int16) << 2,
+                    v.astype(np.int16) << 2))
+    return out
+
+route = sys.argv[1]
+if route == "encode_frames":
+    enc = api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=1),
+                      device="cpu")
+    out = enc.encode_frames(frames(3), batch=2)
+    assert enc._batch_analyzer is not None
+elif route == "me_engine_pallas":
+    enc = api.Encoder(EncoderParams(w=64, h=64, qp=32, keyint=0),
+                      analysis="numpy", me_engine="pallas", device="cpu")
+    out = [(bs, rec) for bs, rec, _p in enc.encode_stream(iter(frames(3)))]
+else:
+    enc = api.GopEncoder(EncoderParams(w=64, h=64, qp=32, keyint=0,
+                                       bframes=15),
+                         analysis="device", device="cpu")
+    out = [(bs, rec) for bs, rec, _p in enc.encode_stream_meshed(
+        iter(frames(17)), make_mesh(2, "cpu"))]
+    graft_entry.dryrun_multichip(2, device="cpu")
+dec = BaselineIntraDecoder().decode(b"".join(bs for bs, _r in out))
+assert len(dec) == len(out)
+for f, (_bs, rec) in zip(dec, out):              # coding order
+    for a, b in zip((f.y, f.u, f.v), rec):
+        assert np.array_equal(a, b), f"poc {f.poc}"
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "xeve_tpu")]
+assert not loaded, loaded
+print("ok", sum(len(bs) for bs, _r in out))
+"""
+
+
+@pytest.mark.parametrize("route", ["encode_frames", "me_engine_pallas",
+                                   "encode_stream_meshed"])
+def test_new_routes_without_jax_package(route):
+    """encode_frames (BatchAnalyzer), the numpy engine with
+    me_engine="pallas", and encode_stream_meshed over a 2-device CPU mesh
+    with graft_entry.dryrun_multichip, in an interpreter where jax and
+    xeve_tpu cannot be imported: each stream decodes to its recon."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", ROUTES_SCRIPT, route],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("ok ")
+
+
 CLI_SCRIPT = r"""
 import os, sys
 sys.modules["jax"] = None
@@ -203,8 +266,13 @@ def test_copy_is_byte_identical(rel):
         assert a.read() == b.read()
 
 
-def _code_without_docstrings(path):
-    tree = ast.parse(open(path).read(), path)
+def _code_without_docstrings(path, package=None):
+    """The AST of `path` without docstrings; with `package`, the module
+    paths of the JAX package read as that package's."""
+    src = open(path).read()
+    if package:
+        src = src.replace("xeve_tpu.", package + ".")
+    tree = ast.parse(src, path)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and \
@@ -215,11 +283,22 @@ def _code_without_docstrings(path):
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("rel", ["constants.py"])
+@pytest.mark.parametrize("rel", ["constants.py", "native/gen_tables.py"])
 def test_copy_code_equals_original(rel):
-    """Copies whose docstrings were reworded keep the original's code."""
+    """Copies whose docstrings were reworded keep the original's code, the
+    port's module paths in place of the JAX package's."""
     assert _code_without_docstrings(os.path.join(PORT, rel)) == \
-        _code_without_docstrings(os.path.join(ORIG, rel))
+        _code_without_docstrings(os.path.join(ORIG, rel), "xeve_tpu_torch")
+
+
+def test_gen_tables_reproduces_tables_h(tmp_path):
+    """The port's gen_tables.py, from the port's own copies of the tables,
+    writes the committed tables.h byte for byte."""
+    from xeve_tpu_torch.native import gen_tables
+    out = tmp_path / "tables.h"
+    gen_tables.main(str(out))
+    with open(os.path.join(PORT, "native", "tables.h"), "rb") as f:
+        assert out.read_bytes() == f.read()
 
 
 def test_pad_l_equals_original():

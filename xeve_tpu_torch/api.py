@@ -66,35 +66,51 @@ cut raises KeyError, as the JAX package's does.
 The CLIs are app.py (`python -m xeve_tpu_torch.app`, the twin of
 xeve_tpu_app.py with --device) and dec_app.py.
 
-Still refused with NotImplementedError: the batched all-intra
-`encode_frames` (BatchAnalyzer), the meshed sub-GOP analysis
-`encode_stream_meshed`, and `me_engine` (the JAX package's switch that
-routes the numpy engine's integer ME to the device).
+`me_engine` routes the numpy engine's integer ME (and the device
+analyzer's host fallback) to the card: "jax" and "pallas" both take
+ops/me_cuda.integer_me_np on the encoder's device, the CUDA kernel
+csrc/me_full_search.cu there (its plain version on the CPU); None and
+"numpy" keep the numpy full search.  The JAX package sets a process
+global (analysis_inter_np.ME_ENGINE) that every numpy-engine encoder of
+the process then follows; here the setting belongs to the encoder.
+
+`encode_frames` is the JAX package's batched all-intra route: the
+analysis of chunk k+1 (enc/analysis_torch.BatchAnalyzer under
+analysis="jax", numpy analyze_frame on every other engine) runs on a
+producer thread while the C pass codes chunk k.  `encode_stream_meshed`
+spreads each RA sub-GOP's B-frame analyses over a list of devices
+(parallel/mesh.py); its stream equals encode_stream's.  Both reproduce
+the JAX package's routes as they are: encode_frames codes Baseline I
+slices at the fixed qp with no RC update and no DPB push, and under DRA
+both return mapped-domain reconstructions (ROADMAP §3).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from queue import Queue
 
 import numpy as np
+import torch
 
 from .constants import (NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS, NUT_SEI,
                         NUT_APS, QP_ADAPT_LD, QP_ADAPT_RA16, SLICE_I, SLICE_P,
                         SLICE_B, chroma_qp_dynamic)
-from .device import resolve_device
+from .device import device_scope, resolve_device
 from .enc.analysis_inter_np import analyze_frame_inter
 from .enc.analysis_inter_torch import analyze_frame_inter_torch
 from .enc.analysis_main_np import analyze_frame_main
 from .enc.analysis_main_torch import (analyze_frame_main_torch,
                                       collect_main_torch, dispatch_main_torch)
 from .enc.analysis_np import analyze_frame
-from .enc.analysis_torch import analyze_frame_torch
-from .enc.device_analyzer import DeviceAnalyzer
+from .enc.analysis_torch import BatchAnalyzer, analyze_frame_torch
+from .enc.device_analyzer import DeviceAnalyzer, _DeviceVec, _Handle
 from .enc.frame_native import encode_frame_native
 from .enc.frame_pass import FramePass, PAD_L
 from .enc.intra_frame_native import encode_intra_frame_native
@@ -104,8 +120,10 @@ from .entropy.sbac import SbacEncoder, SbacCtx
 from .hls import SPS, PPS, SliceHeader, NalHeader, wrap_nal
 from .io.bits import BitWriter
 from .ops import mc_np
+from .ops import me_cuda
 from .ops import picman_np
 from .ops.dra_np import apply_dra, build_dra_maps, derive_sig_params
+from .parallel.mesh import meshed_subgop_analysis
 from .params import EncoderParams
 
 CABAC_ZERO_PARAM = 32
@@ -135,13 +153,14 @@ class Encoder:
             raise ValueError(f"unknown analysis engine {analysis!r}")
         if coder not in ("native", "numpy"):
             raise ValueError(f"unknown coding pass {coder!r}")
-        if me_engine is not None:
-            raise NotImplementedError("me_engine (the numpy engine's integer "
-                                      "ME on the device) is not ported to "
-                                      "torch yet")
+        if me_engine not in (None, "numpy", "jax", "pallas"):
+            raise ValueError(f"unknown me_engine {me_engine!r}")
         self.p = params.validate()
         p = self.p
         self.device = resolve_device(device)
+        # the numpy inter analysis' integer ME, this encoder's own
+        self._integer_me = None if me_engine in (None, "numpy") else \
+            functools.partial(me_cuda.integer_me_np, device=self.device)
         if p.btt < 0:
             # auto: BTT on for Main AI with the native coder (stage-2
             # rectangular leaves need the exact-RD trial machinery)
@@ -162,6 +181,7 @@ class Encoder:
             raise ValueError("multi-ref (ref_pics>1) requires the native "
                              "coding pass")
         self.analysis_calls = 0
+        self._batch_analyzer = None
         self._dev = None
         self._code_pool = None     # frame-parallel C-pass workers
         self.dpb = []          # DPB entries (padded recon + mv map + tid)
@@ -445,7 +465,7 @@ class Encoder:
             self._dev = DeviceAnalyzer(
                 p.w_aligned, p.h_aligned, p.codec_bit_depth,
                 search_range=p.search_range, min_log2=p.min_cu_log2,
-                device=self.device)
+                device=self.device, integer_me_fn=self._integer_me)
         return self._dev
 
     def prewarm(self) -> float:
@@ -574,7 +594,8 @@ class Encoder:
         if self.analysis_engine == "numpy":
             return analyze_frame_inter(y, u, v, refp, qp, qp_y, qp_u, qp_v,
                                        bd, refp1=refp1,
-                                       search_range=search_range)
+                                       search_range=search_range,
+                                       integer_me_fn=self._integer_me)
         return analyze_frame_inter_torch(y, u, v, refp, qp, qp_y, qp_u, qp_v,
                                          bd, refp1=refp1,
                                          search_range=search_range,
@@ -855,8 +876,93 @@ class Encoder:
         return payload, bin_count, rec_y, rec_u, rec_v, map_mv, tl
 
     def encode_frames(self, frames, batch: int = 4):
-        raise NotImplementedError("batched all-intra analysis is not ported "
-                                  "to torch yet; use encode_stream")
+        """Batch all-intra encode with a two-stage pipeline: the analysis
+        of chunk k+1 runs on a producer thread while the native C pass
+        codes chunk k.  frames: list of (y, u, v).  Returns a list of
+        (bitstream_bytes, (rec_y, rec_u, rec_v)).
+
+        The JAX package's route as it is (xeve_tpu/api.py:817): the
+        BatchAnalyzer under analysis="jax", numpy analyze_frame on every
+        other engine; Baseline I slices at the fixed p.qp with the Baseline
+        chroma table; no RC update and no DPB push.  An exception in the
+        producer is raised here."""
+        p = self.p
+        frames = [self._pad_input(*f) for f in frames]
+        qp = p.qp
+        bd = p.codec_bit_depth
+        qp_y = qp + 6 * (bd - 8)
+        qpu_i = int(np.clip(qp + p.qp_cb_offset, -6 * (bd - 8), 57))
+        qpv_i = int(np.clip(qp + p.qp_cr_offset, -6 * (bd - 8), 57))
+        qp_u = chroma_qp_dynamic(qpu_i) + 6 * (bd - 8)
+        qp_v = chroma_qp_dynamic(qpv_i) + 6 * (bd - 8)
+
+        chunks = [frames[i:i + batch] for i in range(0, len(frames), batch)]
+
+        def analyze_chunk(chunk):
+            self.analysis_calls += len(chunk)
+            if self.analysis_engine == "jax":
+                if self._batch_analyzer is None:
+                    self._batch_analyzer = BatchAnalyzer(
+                        p.w_aligned, p.h_aligned, qp, qp_y, qp_u, qp_v, bd,
+                        device=self.device)
+                return self._batch_analyzer.analyze(chunk)
+            return [analyze_frame(np.asarray(y, dtype=np.int32),
+                                  np.asarray(u, dtype=np.int32),
+                                  np.asarray(v, dtype=np.int32),
+                                  qp, qp_y, qp_u, qp_v, bd)
+                    for (y, u, v) in chunk]
+
+        q = Queue(maxsize=1)
+
+        def producer():
+            # a new thread starts on device 0: enqueue on self.device
+            try:
+                with device_scope(self.device):
+                    for ch in chunks:
+                        q.put((analyze_chunk(ch), None))
+            except Exception as e:           # raised by the caller
+                q.put((None, e))
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+
+        out = []
+        for ch in chunks:
+            analyses, err = q.get()  # chunk k analyses; chunk k+1 in flight
+            if err is not None:
+                t.join()
+                raise err
+            for (y, u, v), an in zip(ch, analyses):
+                nut = NUT_IDR if self.pic_cnt == 0 else NUT_NONIDR
+                bs = b""
+                if self.pic_cnt == 0:
+                    bs += self._headers()
+                sh = SliceHeader(slice_type=SLICE_I, qp=qp,
+                                 qp_u_offset=p.qp_cb_offset,
+                                 qp_v_offset=p.qp_cr_offset,
+                                 deblocking_filter_on=1 if p.use_deblock
+                                 else 0)
+                bw = BitWriter()
+                NalHeader(nut, 0).write(bw)
+                sh.write(bw, nut, self.sps, self.pps)
+                slice_payload, bin_count, rec_y, rec_u, rec_v, _tl = \
+                    encode_intra_frame_native(
+                        p.w_aligned, p.h_aligned, bd, qp, p.qp_cb_offset,
+                        p.qp_cr_offset, y, u, v, an, use_rdoq=p.rdoq,
+                        use_deblock=p.use_deblock,
+                        aq_map=self._aq_map(y, u, v),
+                        cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                        dquant_flag=self.sps.dquant_flag,
+                        exact_rd=p.exact_rd)
+                payload = bw.get_bytes() + slice_payload
+                payload += self._cabac_zero_words(bin_count, len(payload))
+                bs += wrap_nal(payload)
+                if p.use_pic_sign:
+                    bs += self._signature_sei(rec_y, rec_u, rec_v)
+                self.pic_cnt += 1
+                out.append((bs, (rec_y, rec_u, rec_v)))
+        t.join()
+        return out
 
     @staticmethod
     def _frame_workers():
@@ -1406,8 +1512,86 @@ class GopEncoder(Encoder):
         return ref0, ref0b, ref1, ref1b
 
     def encode_stream_meshed(self, frames, mesh):
-        raise NotImplementedError("the meshed sub-GOP analysis is not ported "
-                                  "to torch yet")
+        """RA GOP16 stream encode with each sub-GOP's B-frame analyses
+        spread one per device over `mesh` (parallel.mesh.make_mesh, a list
+        of torch devices).  Each frame's analysis is the single-device
+        fused graph, so the stream equals encode_stream's for any mesh.
+        Yields (bs, rec, poc) in coding order; the recon stays in the
+        mapped domain under DRA, as in the JAX package."""
+        p = self.p
+        assert p.bframes >= 15 and p.keyint != 1, "meshed path is RA GOP16"
+        assert p.ref_pics == 1, \
+            "meshed batch analysis carries L0/L1 refi-0 planes only"
+        dev = self._device()
+        for fr in frames:
+            self._gop_in.append(self._pad_input(*fr))
+            if not self._first_done:
+                self._poc_state.derive(True, 0, 4)
+                bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
+                self._first_done = True
+                yield bs, rec, 0
+                continue
+            if len(self._gop_in) == 17:
+                yield from self._encode_subgop_meshed(dev, mesh)
+        yield from self._flush()
+
+    def _encode_subgop_meshed(self, dev, mesh):
+        """One full sub-GOP: the anchor (no L1 ref) through the analyzer's
+        own dispatch, the B frames as one batch over the mesh, padded to a
+        multiple of its size by repeating the last item."""
+        base = self._gop_base
+        # full sub-GOP only: derived poc == display poc; the call still
+        # advances the derivation state for a later truncated flush
+        order = [(poc, tid, is_ref)
+                 for (poc, _disp, tid, is_ref) in self._ra_order_derived(base)]
+        for (poc, _tid, _is_ref) in order:
+            dev.put_frame(poc, *self._gop_in[poc - base])
+        handles = {}
+        b_items = []          # (poc, prms, prm3, ref0, ref1)
+        for (poc, tid, is_ref) in order:
+            depth = 1 if poc % 16 == 0 else tid + 1
+            qp = self._ra_qp(depth) if self.rc is None \
+                else self._qp_guess(SLICE_B)
+            qp_y, qp_u, qp_v = self._qp_triplet(qp)
+            low = poc & -poc
+            ref0 = poc - low if poc % 16 else poc - 16
+            ref1 = poc + low if poc % 16 else None
+            if ref1 is not None and (ref1 > base + 16
+                                     or not dev.has_frame(ref1)):
+                ref1 = None
+            if ref1 is None:
+                handles[poc] = dev.dispatch_bg(poc, qp, qp_y, qp_u, qp_v,
+                                               ref_poc=ref0)
+                continue
+            b_items.append((poc, *dev.params(qp, qp_y, qp_u, qp_v), ref0,
+                            ref1))
+        if b_items:
+            n = len(b_items)
+            n_pad = -(-n // len(mesh)) * len(mesh)
+            cols = [[] for _ in range(11)]
+            for i in list(range(n)) + [n - 1] * (n_pad - n):
+                poc, prms, prm3, r0, r1 = b_items[i]
+                planes = (*dev.ring_get(poc), *dev.ring_get(r0),
+                          *dev.ring_get(r1), prms, prm3)
+                for c, a in zip(cols, planes):
+                    c.append(a)
+            vecs = meshed_subgop_analysis(
+                mesh, bd=self.p.codec_bit_depth,
+                search_range=self.p.search_range, min_log2=dev.min_log2,
+                max_log2=dev.max_log2)(*(torch.stack(c) for c in cols))
+            for (poc, _p, _p3, _r0, _r1), vec in zip(b_items, vecs):
+                handles[poc] = _Handle(_DeviceVec(vec), "B", self.p.h_aligned,
+                                       self.p.w_aligned, dev.min_log2,
+                                       dev.max_log2,
+                                       planes=(True, False, True, False,
+                                               True))
+        for (poc, tid, is_ref) in order:
+            an = dev.collect(handles[poc])
+            bs, rec = self._encode_ra_frame(poc, tid, poc - base, is_ref,
+                                            SLICE_B, analysis_pre=an)
+            yield bs, rec, poc
+        self._gop_base = base + 16
+        self._gop_in = self._gop_in[-1:]
 
     def _ra_qp(self, depth):
         off_layer, off_model, scale_model = QP_ADAPT_RA16[depth]

@@ -6,6 +6,8 @@ place.  The CPU runs only when a caller asks for it (the tests do).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -28,3 +30,11 @@ def resolve_device(device) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def device_scope(dev: torch.device):
+    """A context that makes `dev` the current CUDA device (a thread starts
+    on device 0 whatever its parent chose); no-op for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

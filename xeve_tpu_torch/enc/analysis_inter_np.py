@@ -11,10 +11,12 @@ Because MC depends only on the (already reconstructed) reference picture,
 inter analysis costs here are exact up to rate estimation; only intra
 neighbours are open-loop.
 
-The port's copy of xeve_tpu/enc/analysis_inter_np.py: the oracle behind
-the device analyzer's host fallback.  Its integer ME is always the numpy
-integer_me below (the original's process-global ME_ENGINE switch is not
-carried over).
+The port's copy of xeve_tpu/enc/analysis_inter_np.py: the numpy engine's
+inter analysis and the oracle behind the device analyzer's host fallback.
+The original's process-global ME_ENGINE switch is not carried over: the
+caller passes its integer ME as `integer_me_fn` (api.Encoder builds it
+from its own `me_engine`), and without one the numpy integer_me below
+runs.
 """
 from __future__ import annotations
 
@@ -113,9 +115,13 @@ def _mv_for_level(mv16: np.ndarray, lg: int, nby: int, nbx: int):
 
 def analyze_frame_inter(orig_y, orig_u, orig_v, refp, qp, qp_y, qp_u, qp_v,
                         bd, search_range=16, do_subpel=True, refp1=None,
-                        max_log2=6, min_log2=2) -> InterAnalysisResult:
+                        max_log2=6, min_log2=2,
+                        integer_me_fn=None) -> InterAnalysisResult:
     """P/B-frame analysis: intra costs (open loop) + inter costs (exact MC
-    on the real reference(s)) -> combined partition DP."""
+    on the real reference(s)) -> combined partition DP.  integer_me_fn:
+    a callable with integer_me's signature and results (default
+    integer_me)."""
+    me = integer_me_fn or integer_me
     lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
     h, w = orig_y.shape
     intra = analysis_np.analyze_frame(orig_y, orig_u, orig_v, qp, qp_y, qp_u,
@@ -123,22 +129,21 @@ def analyze_frame_inter(orig_y, orig_u, orig_v, refp, qp, qp_y, qp_u, qp_v,
                                       min_log2=min_log2)
     ref = refp[0]
     pad = 64 + 16
-    mv16_i, _ = integer_me(orig_y, ref["y_pad"], pad, search_range)
+    mv16_i, _ = me(orig_y, ref["y_pad"], pad, search_range)
     if do_subpel:
         mv16 = subpel_refine(orig_y, ref["y_pad"], pad, mv16_i, bd)
     else:
         mv16 = (mv16_i << 2)
     mv16_b = None
     if refp1 and refp1[0]["poc"] != ref["poc"]:
-        mv16_i1, _ = integer_me(orig_y, refp1[0]["y_pad"], pad,
-                                          search_range)
+        mv16_i1, _ = me(orig_y, refp1[0]["y_pad"], pad, search_range)
         mv16_b = subpel_refine(orig_y, refp1[0]["y_pad"], pad, mv16_i1, bd) \
             if do_subpel else (mv16_i1 << 2)
     elif refp1:
         mv16_b = mv16
 
     def _extra_ref_me(r):
-        mvi, _ = integer_me(orig_y, r["y_pad"], pad, search_range)
+        mvi, _ = me(orig_y, r["y_pad"], pad, search_range)
         return subpel_refine(orig_y, r["y_pad"], pad, mvi, bd) \
             if do_subpel else (mvi << 2)
 

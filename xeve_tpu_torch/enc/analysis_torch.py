@@ -4,7 +4,7 @@ For every quadtree level, predictions for all 5 Baseline modes of every
 block are formed at once, transformed with constant-matrix products,
 quantized, inverse-transformed and costed (distortion + bin-count rate
 estimate).  The partition DP runs on the host on the small per-level cost
-maps.
+maps.  BatchAnalyzer analyses N frames with one upload and one download.
 
 Numerics follow the JAX twin: f32 throughout, floor((x + c) / d) with
 power-of-two d, and decisions only (the closed-loop C pass recomputes
@@ -244,3 +244,59 @@ def analyze_frame_torch(orig_y, orig_u, orig_v, qp, qp_y, qp_u, qp_v, bd,
                           bd=bd, min_log2=min_log2, max_log2=max_log2)
     mode, leaf_cost = _unpack(vec.cpu().numpy(), h, w, min_log2, max_log2)
     return _partition_dp(mode, leaf_cost, h, w, lam, min_log2, max_log2)
+
+
+class BatchAnalyzer:
+    """N independent frames per call: one int16 upload of (B, n_y + 2 n_c),
+    the level costs of every frame on `device`, one packed f32 download of
+    (B, .), then the host partition DP per frame.  Port of
+    analysis_jax.BatchAnalyzer (:301).
+
+    The JAX package vmaps `_level_cost_impl` over the batch.  Here each
+    frame runs the single-frame graph in turn inside the one call: a
+    batched product may sum in another order (the f32 products above 2^24,
+    module docstring), and the per-frame graph keeps every decision equal
+    to analyze_frame_torch's on the same device."""
+
+    def __init__(self, w: int, h: int, qp: int, qp_y: int, qp_u: int,
+                 qp_v: int, bd: int = 10, min_log2: int = 2,
+                 max_log2: int = 6, *, device):
+        self.device = resolve_device(device)
+        self.w, self.h = w, h
+        self.bd = bd
+        self.min_log2, self.max_log2 = min_log2, max_log2
+        self.lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+        self.n_y = w * h
+        self.n_c = (w // 2) * (h // 2)
+        self.prms = {lg: torch.as_tensor(
+            level_params(qp, qp_y, qp_u, qp_v, bd, lg), device=self.device)
+            for lg in range(min_log2, max_log2 + 1)}
+
+    def _run(self, data):
+        """(B, n_y + 2 n_c) int16 on the device -> (B, .) packed f32."""
+        w, h, n_y, n_c = self.w, self.h, self.n_y, self.n_c
+        rows = []
+        for row in data.to(torch.float32):
+            y = row[:n_y].reshape(h, w)
+            u = row[n_y:n_y + n_c].reshape(h // 2, w // 2)
+            v = row[n_y + n_c:].reshape(h // 2, w // 2)
+            parts = []
+            for lg in range(self.min_log2, self.max_log2 + 1):
+                parts += _level_cost_impl(y, u, v, self.prms[lg], self.bd, lg)
+            rows.append(_pack(parts))
+        return torch.stack(rows)
+
+    def analyze(self, frames) -> list[AnalysisResult]:
+        """frames: list of (y, u, v) int arrays.  Returns AnalysisResults."""
+        data = np.empty((len(frames), self.n_y + 2 * self.n_c), np.int16)
+        for i, (y, u, v) in enumerate(frames):
+            data[i, :self.n_y] = np.asarray(y).reshape(-1)
+            data[i, self.n_y:self.n_y + self.n_c] = np.asarray(u).reshape(-1)
+            data[i, self.n_y + self.n_c:] = np.asarray(v).reshape(-1)
+        vecs = self._run(to_device(data, torch.int16, self.device)) \
+            .cpu().numpy()
+        return [_partition_dp(*_unpack(vec, self.h, self.w, self.min_log2,
+                                       self.max_log2),
+                              self.h, self.w, self.lam, self.min_log2,
+                              self.max_log2)
+                for vec in vecs]

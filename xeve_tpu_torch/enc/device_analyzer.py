@@ -362,11 +362,13 @@ class DeviceAnalyzer:
     device the card computes in the background); collect() blocks on the
     single packed copy and materializes the decision maps.  `dispatches`
     counts the fused dispatches made, `failures` the recovered device
-    failures."""
+    failures.  integer_me_fn: the integer ME of the host fallback's numpy
+    inter analysis (analysis_inter_np.analyze_frame_inter; default its
+    numpy full search)."""
 
     def __init__(self, w: int, h: int, bd: int = 10, search_range: int = 16,
                  min_log2: int = 2, max_log2: int = 6, ring_size: int = 24,
-                 *, device="cuda"):
+                 *, device="cuda", integer_me_fn=None):
         if bd not in (8, 10):
             raise ValueError("device analyzer supports 8/10-bit internal")
         self.device = resolve_device(device)
@@ -378,6 +380,7 @@ class DeviceAnalyzer:
         self.ring_size = ring_size
         self.failures = 0          # recovered device failures (telemetry)
         self.dispatches = 0
+        self.integer_me_fn = integer_me_fn
         self._count_lock = threading.Lock()   # prewarm dispatches in threads
         self._pool = None          # lazy single-thread dispatcher
 
@@ -438,6 +441,17 @@ class DeviceAnalyzer:
         return t
 
     # -- analysis --------------------------------------------------------
+    def params(self, qp: int, qp_y: int, qp_u: int, qp_v: int):
+        """The fused graph's parameters on the device: prms (n_levels, 15)
+        per-level quant parameters and prm3 (lam, w_u, w_v)."""
+        prms = self._to_device(np.stack(
+            [level_params(qp, qp_y, qp_u, qp_v, self.bd, lg)
+             for lg in range(self.min_log2, self.max_log2 + 1)]))
+        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
+        w_u = 2.0 ** ((qp_y - qp_u) / 3.0)
+        w_v = 2.0 ** ((qp_y - qp_v) / 3.0)
+        return prms, self._to_device(np.array([lam, w_u, w_v], np.float32))
+
     def dispatch(self, poc: int, qp: int, qp_y: int, qp_u: int, qp_v: int,
                  ref_poc: int | None = None,
                  ref1_poc: int | None = None,
@@ -447,13 +461,7 @@ class DeviceAnalyzer:
         y, u, v = self.ring_get(poc)
         kind = "I" if ref_poc is None else (
             "B" if (ref1_poc is not None and ref1_poc != ref_poc) else "P")
-        prms = self._to_device(np.stack(
-            [level_params(qp, qp_y, qp_u, qp_v, self.bd, lg)
-             for lg in range(self.min_log2, self.max_log2 + 1)]))
-        lam = 0.57 * 2.0 ** ((qp - 12) / 3.0)
-        w_u = 2.0 ** ((qp_y - qp_u) / 3.0)
-        w_v = 2.0 ** ((qp_y - qp_v) / 3.0)
-        prm3 = self._to_device(np.array([lam, w_u, w_v], np.float32))
+        prms, prm3 = self.params(qp, qp_y, qp_u, qp_v)
         ref0 = self.ring_get(ref_poc) if kind in ("P", "B") else None
         ref1 = self.ring_get(ref1_poc) if kind == "B" else None
         ref0b = (self.ring_get(ref0b_poc)
@@ -511,7 +519,8 @@ class DeviceAnalyzer:
             refp1 = [ref(r1)] + ([ref(r1b)] if r1b is not None else [])
         return analyze_frame_inter(y, u, v, refp, qp, qp_y, qp_u, qp_v,
                                    self.bd, search_range=self.R,
-                                   refp1=refp1, min_log2=self.min_log2)
+                                   refp1=refp1, min_log2=self.min_log2,
+                                   integer_me_fn=self.integer_me_fn)
 
     def dispatch_bg(self, *args, **kw):
         """dispatch() on the dispatcher thread; returns a Future[_Handle]

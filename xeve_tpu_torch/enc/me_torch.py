@@ -10,7 +10,6 @@ wins.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 BLK = 16
@@ -45,18 +44,3 @@ def integer_me_plain(cur, ref_pad, R: int, pad: int):
         best_dy = torch.where(upd, torch.full_like(best_dy, dy), best_dy)
     return torch.stack([best_dx, best_dy], dim=-1), best_sad
 
-
-def integer_me_torch(cur_y: np.ndarray, ref_y_pad: np.ndarray, pad: int,
-                     search_range: int = 16, *, device):
-    """numpy-facing form of the plain version; crops to the 16-aligned
-    region like the numpy oracle (analysis_inter_np.integer_me).  Returns
-    numpy mv (nby, nbx, 2) int32 and cost (nby, nbx) int64."""
-    h, w = cur_y.shape
-    hc, wc = (h // BLK) * BLK, (w // BLK) * BLK
-    cur = torch.as_tensor(np.ascontiguousarray(cur_y[:hc, :wc], np.int32),
-                          device=device)
-    refp = torch.as_tensor(np.ascontiguousarray(
-        ref_y_pad[:pad * 2 + hc, :pad * 2 + wc], np.int32), device=device)
-    mv, sad = integer_me_plain(cur, refp, int(search_range), int(pad))
-    return (mv.cpu().numpy().astype(np.int32),
-            sad.cpu().numpy().astype(np.int64))

@@ -2,12 +2,14 @@
 
 A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
 runs the plain version, enc/me_torch.integer_me_plain.  LAUNCHES counts
-the kernel's launches.
+the kernel's launches.  integer_me_np is the numpy-facing form that the
+numpy engine's `me_engine` route calls.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..enc.me_torch import BLK, integer_me_plain
@@ -62,3 +64,20 @@ def integer_me(cur, ref_pad, pad: int, R: int):
         raise RuntimeError(f"me_full_search launch failed: cudaError {err}")
     LAUNCHES += 1
     return mv, cost
+
+
+def integer_me_np(cur_y, ref_y_pad, pad: int, search_range: int = 16, *,
+                  device):
+    """analysis_inter_np.integer_me's contract on `device`: numpy planes
+    in, the 16-aligned region searched (the crop of
+    analysis_inter_torch._int_mv), numpy mv (nby, nbx, 2) int32 and cost
+    (nby, nbx) int64 out.  A CUDA device launches the kernel, the CPU runs
+    the plain version."""
+    h, w = cur_y.shape
+    hc, wc = (h // BLK) * BLK, (w // BLK) * BLK
+    cur = torch.as_tensor(np.ascontiguousarray(cur_y[:hc, :wc], np.int32))
+    ref = torch.as_tensor(np.ascontiguousarray(
+        ref_y_pad[:2 * pad + hc, :2 * pad + wc], np.int32))
+    mv, cost = integer_me(cur.to(device), ref.to(device), pad,
+                          int(search_range))
+    return mv.cpu().numpy(), cost.cpu().numpy().astype(np.int64)
