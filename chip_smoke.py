@@ -92,10 +92,20 @@ medium:
      numpy engines, the numpy engine with me_engine "pallas" and None
      (equal streams), encode_stream_meshed, graft_entry.entry() against
      the CPU's, and graft_entry.dryrun_multichip(2).
+then the meshed intra analysis step, the port of the JAX package's only
+collective:
+ 30. parallel.mesh.meshed_analysis_step on 8 frames at 1920x1088, QP 32
+     (the I frame's Baseline qp_y, qp_u, qp_v from the api), on
+     make_mesh(), [cuda:0]*2 and [cuda:0]*4: every level's modes and costs
+     bit-identical to the card's single-frame _level_cost_impl, the
+     summed total to the float64 sum of the lg 6 costs within rtol 1e-5,
+     modes against the same call on the CPU on 2 frames (>= 0.99 per
+     level); ms per batch of 8 on each mesh beside BatchAnalyzer._run on
+     the same frames (synchronised host clock, median of 3).
 The ME kernel's launch count is set to 0 before each of phases 5, 6, 16,
 17, 19, 20 and 27 and read after it (2, 31, 0, 31, 0, 31 and 1 launches;
-the device engine and Main AI do not launch it); the record sums phases
-5, 6, 17, 20 and 27.
+the device engine, Main AI and phase 30 do not launch it); the record
+sums phases 5, 6, 17, 20 and 27.
 Every phase runs on the port's own modules: neither jax nor the JAX
 package xeve_tpu is imported.
 The last three lines are the run's wall time, the kernel record and
@@ -1080,6 +1090,88 @@ def phase_round_trips_6(Encoder, GopEncoder, EncoderParams, small):
           f"{len(make_mesh(2))} card(s) passed", flush=True)
 
 
+def phase_analysis_step(Encoder, EncoderParams, frames, smi):
+    """meshed_analysis_step at 1080p: equal to the card's single-frame
+    graph on three meshes, its total to the float64 sum, its modes close
+    to the CPU's; timed beside BatchAnalyzer._run."""
+    import numpy as np
+    import torch
+    from xeve_tpu_torch.constants import SLICE_I
+    from xeve_tpu_torch.enc.analysis_torch import BatchAnalyzer, \
+        _level_cost_impl, level_params, to_device
+    from xeve_tpu_torch.parallel.mesh import make_mesh, meshed_analysis_step
+    enc = Encoder(EncoderParams(w=W, h=H, qp=QP, keyint=1), device="cuda")
+    qp_i = enc._slice_qp(SLICE_I)
+    qps = (qp_i, *enc._qp_triplet(qp_i))
+    dev = torch.device("cuda", 0)
+    n = len(frames)
+    planes = [np.stack([f[i] for f in frames]) for i in range(3)]
+    y, u, v = (torch.as_tensor(p, dtype=torch.float32, device=dev)
+               for p in planes)
+    levels = range(2, 7)
+    single = {}
+    for lg in levels:
+        prm = torch.as_tensor(level_params(*qps, 10, lg), device=dev)
+        single[lg] = [_level_cost_impl(y[i], u[i], v[i], prm, bd=10, lg=lg)
+                      for i in range(n)]
+    want = sum(float(c.double().sum()) for _m, c in single[6])
+
+    def timed(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return sorted(ts)[1]
+
+    meshes = {"make_mesh()": make_mesh(), "[cuda:0]*2": [dev] * 2,
+              "[cuda:0]*4": [dev] * 4}
+    times, rel = {}, {}
+    for name, mesh in meshes.items():
+        fn = meshed_analysis_step(mesh, W, H, *qps)
+        out = fn(y, u, v)
+        for j, lg in enumerate(levels):
+            assert out[2 * j].shape == (n, H >> lg, W >> lg)
+            for i, (m1, c1) in enumerate(single[lg]):
+                assert torch.equal(out[2 * j][i], m1) and \
+                    torch.equal(out[2 * j + 1][i], c1), \
+                    f"{name} level {lg} frame {i}: not the single-frame graph"
+        total = out[-1]
+        assert total.device == dev and total.shape == () and \
+            total.dtype == torch.float32
+        rel[name] = abs(float(total) - want) / want
+        assert rel[name] <= 1e-5, f"{name}: total off by {rel[name]:.3g}"
+        times[name] = timed(lambda: fn(y, u, v))
+    t0 = time.perf_counter()
+    cpu = meshed_analysis_step(make_mesh(1, "cpu"), W, H, *qps)(
+        *(torch.as_tensor(p[:2], dtype=torch.float32) for p in planes))
+    t_cpu = time.perf_counter() - t0
+    agree = {}
+    for j, lg in enumerate(levels):
+        agree[lg] = float((out[2 * j][:2].cpu() == cpu[2 * j])
+                          .float().mean())
+        assert agree[lg] >= AGREE_MIN, f"level {lg}: card vs CPU " \
+            f"{agree[lg]:.5f}"
+    ba = BatchAnalyzer(W, H, *qps, device="cuda")
+    data = to_device(np.concatenate([p.reshape(n, -1) for p in planes],
+                                    axis=1), torch.int16, ba.device)
+    ba._run(data)                                          # warm
+    t_ba = timed(lambda: ba._run(data))
+    print(f"phase 30 meshed analysis step: {n} frames {W}x{H}, qp "
+          f"{qps}: every level bit-identical to the single-frame graph on "
+          + ", ".join(meshes) + "; total against the float64 sum: "
+          + ", ".join(f"{k} {r:.3g}" for k, r in rel.items())
+          + " (<= 1e-5); card vs CPU modes on 2 frames "
+          + ", ".join(f"lg{lg} {a:.5f}" for lg, a in agree.items())
+          + f" (>= {AGREE_MIN}; the CPU took {t_cpu:.1f} s); ms per batch "
+          f"of {n} (median of 3, host clock, synchronised): "
+          + ", ".join(f"{k} {t:.1f}" for k, t in times.items())
+          + f"; BatchAnalyzer._run {t_ba:.1f} (make_mesh()/_run "
+          f"{times['make_mesh()'] / t_ba:.3f}); {smi}", flush=True)
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -1195,6 +1287,11 @@ def main():
     phase_meshed(GopEncoder, EncoderParams, frames, ra_stream)
     assert me_cuda.LAUNCHES == 0, "the device engine launched the ME kernel"
     phase_round_trips_6(Encoder, GopEncoder, EncoderParams, small)
+
+    # the meshed intra analysis step and its cross-device cost sum
+    me_cuda.LAUNCHES = 0
+    phase_analysis_step(Encoder, EncoderParams, frames[:8], smi)
+    assert me_cuda.LAUNCHES == 0, "phase 30 launched the ME kernel"
     assert not any(m.split(".")[0] in ("jax", "xeve_tpu")
                    for m in sys.modules), "the port imported jax or xeve_tpu"
 

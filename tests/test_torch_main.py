@@ -19,7 +19,7 @@ from xeve_tpu.constants import chroma_qp_dynamic
 from xeve_tpu.enc import analysis_main_jax
 from xeve_tpu.params import EncoderParams as JaxParams
 from xeve_tpu_torch import api as torch_api
-from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
+from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder, DecodeError
 from xeve_tpu_torch.enc import analysis_main_torch as amt
 from xeve_tpu_torch.enc.analysis_main_np import analyze_frame_main
 from xeve_tpu_torch.params import EncoderParams
@@ -351,3 +351,17 @@ def test_main_ai_tiles_equal_jax_engine():
     dec = _assert_decodes([(bs, rec, 0)])
     assert dec.pps.num_tile_columns_minus1 == 1
     assert len(dec.sh.entry_point_offsets) == 1
+
+
+@pytest.mark.parametrize("engine", ["numpy", "jax"])
+def test_main_without_eipd_as_reference_refused_by_decoder(engine):
+    """A fault of the JAX package that the port carries: Main AI with
+    tool_eipd=0 codes I slices that the decoder refuses.  The port's
+    stream equals the reference's byte for byte, and the port's decoder
+    raises DecodeError on it."""
+    frames = _frames(2, 64, 64)
+    _enc, out = _stream_pair("Encoder", dict(w=64, h=64, qp=30, keyint=1,
+                                             profile=1, tool_eipd=0),
+                             frames, engine=engine)
+    with pytest.raises(DecodeError):
+        BaselineIntraDecoder().decode(b"".join(bs for bs, _r, _p in out))

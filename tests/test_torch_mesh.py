@@ -2,7 +2,10 @@
 GopEncoder.encode_stream_meshed) on meshes of CPU devices: the twin of
 test_multichip.py.  The meshed stream equals the port's one-device
 encode_stream and the JAX package's encode_stream_meshed on its 8-device
-virtual mesh for every mesh size; graft_entry is the twin of
+virtual mesh for every mesh size; meshed_analysis_step equals the JAX
+package's on its 1-, 2- and 8-device meshes (modes exact, costs and the
+psum'd total to rtol 1e-5, the f32 transform products above 2^24 and the
+total's additions may round in another order); graft_entry is the twin of
 __graft_entry__.py."""
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ from xeve_tpu import api as jax_api
 from xeve_tpu.params import EncoderParams as JaxParams
 from xeve_tpu_torch import api as torch_api
 from xeve_tpu_torch import graft_entry
+from xeve_tpu_torch.constants import chroma_qp_dynamic
+from xeve_tpu_torch.enc.analysis_torch import _level_cost_impl, level_params
 from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.params import EncoderParams
 from xeve_tpu_torch.parallel import mesh as port_mesh
@@ -113,6 +118,79 @@ def test_meshed_analysis_pads_and_rejects_ragged_batches():
         fn(*([x] * 11))
 
 
+# meshed_analysis_step: 8 frames at 128x64, QP 32 (an I frame's Baseline
+# qp_y, qp_u, qp_v), the 10-bit samples as f32 as the reference's callers
+# give _level_cost_impl
+STEP_QP = 32
+STEP_QC = chroma_qp_dynamic(STEP_QP) + 12
+STEP_ARGS = (W, H, STEP_QP, STEP_QP + 12, STEP_QC, STEP_QC)
+
+
+def _step_batch(n=8):
+    """(y, u, v) f32 stacks of n frames of the content generator (its own
+    seed)."""
+    fr = _frames(n)
+    return tuple(np.stack([f[i] for f in fr]).astype(np.float32)
+                 for i in range(3))
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """The JAX package's meshed_analysis_step on 1, 2 and 8 virtual
+    devices."""
+    from xeve_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from xeve_tpu.parallel.mesh import meshed_analysis_step
+    batch = _step_batch()
+    return {k: [np.asarray(o) for o in meshed_analysis_step(
+        jax_make_mesh(k), *STEP_ARGS)(*batch)] for k in (1, 2, 8)}
+
+
+@pytest.mark.parametrize("k_jax", [1, 2, 8])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_meshed_analysis_step_equals_jax(jax_steps, k, k_jax):
+    """The port on k CPU devices against the JAX package on k_jax: modes
+    equal, costs and total to rtol 1e-5; every map equals the port's
+    single-frame _level_cost_impl bit for bit, and total the float64 sum
+    of the lg 6 costs to rtol 1e-5."""
+    y, u, v = (torch.as_tensor(a) for a in _step_batch())
+    out = port_mesh.meshed_analysis_step(port_mesh.make_mesh(k, "cpu"),
+                                         *STEP_ARGS)(y, u, v)
+    ref = jax_steps[k_jax]
+    assert len(out) == len(ref) == 11
+    for j, lg in enumerate(range(2, 7)):
+        m, c = out[2 * j], out[2 * j + 1]
+        assert m.shape == c.shape == (8, H >> lg, W >> lg)
+        assert m.dtype == torch.int32 and c.dtype == torch.float32
+        assert np.array_equal(m.numpy(), ref[2 * j]), f"lg {lg} modes"
+        np.testing.assert_allclose(c.numpy(), ref[2 * j + 1], rtol=1e-5)
+        prm = torch.as_tensor(level_params(*STEP_ARGS[2:], 10, lg))
+        for i in range(8):
+            m1, c1 = _level_cost_impl(y[i], u[i], v[i], prm, bd=10, lg=lg)
+            assert torch.equal(m[i], m1) and torch.equal(c[i], c1), \
+                f"lg {lg} frame {i} differs from the single-frame graph"
+    total = out[-1]
+    assert total.shape == () and total.dtype == torch.float32
+    np.testing.assert_allclose(float(total), float(ref[-1]), rtol=1e-5)
+    np.testing.assert_allclose(float(total),
+                               out[-2].double().sum().item(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_meshed_analysis_step_refuses_uneven_batch(side):
+    """A batch of 6 on 4 devices."""
+    batch = _step_batch(6)
+    if side == "jax":
+        from xeve_tpu.parallel.mesh import make_mesh as jax_make_mesh
+        from xeve_tpu.parallel.mesh import meshed_analysis_step
+        fn = meshed_analysis_step(jax_make_mesh(4), *STEP_ARGS)
+    else:
+        fn = port_mesh.meshed_analysis_step(port_mesh.make_mesh(4, "cpu"),
+                                            *STEP_ARGS)
+        batch = tuple(torch.as_tensor(a) for a in batch)
+    with pytest.raises(ValueError, match="divisible|does not split"):
+        fn(*batch)
+
+
 def test_make_mesh(monkeypatch):
     """n entries of the CPU device; the first n CUDA cards, at most as many
     as there are (the JAX package's devs[:n])."""
@@ -176,3 +254,22 @@ def test_meshed_stream_on_card_equals_one_device():
         EncoderParams(**P), analysis="device", device="cuda")
         .encode_stream_meshed(iter(frames), mesh)]
     assert out == one
+
+
+@pytest.mark.cuda
+def test_meshed_analysis_step_on_card_equals_single_frame_graph():
+    """[cuda:0, cuda:0]: every map equals the card's single-frame graph;
+    the total lies on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    y, u, v = (torch.as_tensor(a, device=dev) for a in _step_batch())
+    out = port_mesh.meshed_analysis_step([dev] * 2, *STEP_ARGS)(y, u, v)
+    for j, lg in enumerate(range(2, 7)):
+        prm = torch.as_tensor(level_params(*STEP_ARGS[2:], 10, lg),
+                              device=dev)
+        for i in range(8):
+            m1, c1 = _level_cost_impl(y[i], u[i], v[i], prm, bd=10, lg=lg)
+            assert torch.equal(out[2 * j][i], m1)
+            assert torch.equal(out[2 * j + 1][i], c1)
+    assert out[-1].device == dev and out[-1].shape == ()

@@ -112,7 +112,7 @@ from tools.gen_test_content import gen_frame
 from xeve_tpu_torch import api, graft_entry
 from xeve_tpu_torch.dec.decoder import BaselineIntraDecoder
 from xeve_tpu_torch.params import EncoderParams
-from xeve_tpu_torch.parallel.mesh import make_mesh
+from xeve_tpu_torch.parallel.mesh import make_mesh, meshed_analysis_step
 
 def frames(n):
     out = []
@@ -139,6 +139,11 @@ else:
     out = [(bs, rec) for bs, rec, _p in enc.encode_stream_meshed(
         iter(frames(17)), make_mesh(2, "cpu"))]
     graft_entry.dryrun_multichip(2, device="cpu")
+    import torch
+    step = meshed_analysis_step(make_mesh(2, "cpu"), 64, 64, 32, 44, 43, 43)(
+        *(torch.as_tensor(np.stack([f[i] for f in frames(2)]),
+                          dtype=torch.float32) for i in range(3)))
+    assert len(step) == 11 and step[-1].shape == () and step[-1] > 0
 dec = BaselineIntraDecoder().decode(b"".join(bs for bs, _r in out))
 assert len(dec) == len(out)
 for f, (_bs, rec) in zip(dec, out):              # coding order
@@ -156,8 +161,9 @@ print("ok", sum(len(bs) for bs, _r in out))
 def test_new_routes_without_jax_package(route):
     """encode_frames (BatchAnalyzer), the numpy engine with
     me_engine="pallas", and encode_stream_meshed over a 2-device CPU mesh
-    with graft_entry.dryrun_multichip, in an interpreter where jax and
-    xeve_tpu cannot be imported: each stream decodes to its recon."""
+    with graft_entry.dryrun_multichip and meshed_analysis_step, in an
+    interpreter where jax and xeve_tpu cannot be imported: each stream
+    decodes to its recon."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", ROUTES_SCRIPT, route],
                        cwd=ROOT, env=env, capture_output=True, text=True,
