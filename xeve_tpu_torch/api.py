@@ -99,6 +99,7 @@ from queue import Queue
 import numpy as np
 import torch
 
+from . import trace
 from .constants import (NUT_IDR, NUT_NONIDR, NUT_SPS, NUT_PPS, NUT_SEI,
                         NUT_APS, QP_ADAPT_LD, QP_ADAPT_RA16, SLICE_I, SLICE_P,
                         SLICE_B, chroma_qp_dynamic)
@@ -1014,81 +1015,89 @@ class Encoder:
                 max_workers=self._frame_workers(),
                 thread_name_prefix="xt-frame")
 
-        def code_ai(yuv, hd):
-            y, u, v = yuv
-            qp = self._slice_qp(SLICE_I)
-            return encode_intra_frame_native(
-                p.w_aligned, p.h_aligned, p.codec_bit_depth, qp,
-                p.qp_cb_offset, p.qp_cr_offset, y, u, v, dev.collect(hd),
-                use_rdoq=p.rdoq, use_deblock=p.use_deblock,
-                aq_map=self._aq_map(y, u, v),
-                cu_qp_delta_area=self.pps.cu_qp_delta_area,
-                dquant_flag=self.sps.dquant_flag,
-                exact_rd=p.exact_rd)
+        def code_ai(yuv, hd, poc, t_submit):
+            with trace.span("frame.task", poc=poc, t_submit=t_submit):
+                y, u, v = yuv
+                qp = self._slice_qp(SLICE_I)
+                return encode_intra_frame_native(
+                    p.w_aligned, p.h_aligned, p.codec_bit_depth, qp,
+                    p.qp_cb_offset, p.qp_cr_offset, y, u, v, dev.collect(hd),
+                    use_rdoq=p.rdoq, use_deblock=p.use_deblock,
+                    aq_map=self._aq_map(y, u, v),
+                    cu_qp_delta_area=self.pps.cu_qp_delta_area,
+                    dquant_flag=self.sps.dquant_flag,
+                    exact_rd=p.exact_rd)
 
         def dispatch(fr):
             nonlocal disp
-            y, u, v = self._pad_input(*fr)
-            # lookahead-lite: per-frame complexity proxy feeding the RC
-            # forecast window + scene-cut keyframe insertion
-            # (xeve_fcst.c:106 scene type analog)
-            px = scene_proxy(np.asarray(y), self._fcst_prev)
-            self._fcst_prev = np.asarray(y)
-            hist = [c for (_d, c) in self._fcst[-8:]]
-            if (self.rc is not None and p.keyint != 1 and disp > 0
-                    and len(hist) >= 2
-                    and px > 6.0 * max(np.mean(hist), 1.0)):
-                self._force_idr.add(disp)
-            self._fcst.append((disp, px))
-            if len(self._fcst) > 32:
-                del self._fcst[:-32]
-            st = self._slice_type_for(disp)
-            qp = self._qp_guess(st)
-            qp_y, qp_u, qp_v = self._qp_triplet(qp)
-            dev.put_frame(disp, y, u, v)
-            ref = ref0b = None
-            if st != SLICE_I:
-                ref = disp - 1
-                # second L0 ref (refi=1): previous-but-one, unless it
-                # precedes the last I (decoder list constraint)
-                last_i = (disp // p.keyint) * p.keyint if p.keyint > 1 else 0
-                if (p.ref_pics > 1 and disp - 2 >= last_i
-                        and dev.has_frame(disp - 2)):
-                    ref0b = disp - 2
-            hd = dev.dispatch_bg(disp, qp, qp_y, qp_u, qp_v, ref_poc=ref,
-                                 ref0b_poc=ref0b)
-            if par_ai:
-                hd = self._code_pool.submit(code_ai, (y, u, v), hd)
-            pending.append(((y, u, v), hd))
+            with trace.span("api.feed", poc=disp):
+                y, u, v = self._pad_input(*fr)
+                dev.put_frame(disp, y, u, v)
+            with trace.span("api.schedule", poc=disp):
+                # lookahead-lite: per-frame complexity proxy feeding the RC
+                # forecast window + scene-cut keyframe insertion
+                # (xeve_fcst.c:106 scene type analog)
+                px = scene_proxy(np.asarray(y), self._fcst_prev)
+                self._fcst_prev = np.asarray(y)
+                hist = [c for (_d, c) in self._fcst[-8:]]
+                if (self.rc is not None and p.keyint != 1 and disp > 0
+                        and len(hist) >= 2
+                        and px > 6.0 * max(np.mean(hist), 1.0)):
+                    self._force_idr.add(disp)
+                self._fcst.append((disp, px))
+                if len(self._fcst) > 32:
+                    del self._fcst[:-32]
+                st = self._slice_type_for(disp)
+                qp = self._qp_guess(st)
+                qp_y, qp_u, qp_v = self._qp_triplet(qp)
+                ref = ref0b = None
+                if st != SLICE_I:
+                    ref = disp - 1
+                    # second L0 ref (refi=1): previous-but-one, unless it
+                    # precedes the last I (decoder list constraint)
+                    last_i = ((disp // p.keyint) * p.keyint
+                              if p.keyint > 1 else 0)
+                    if (p.ref_pics > 1 and disp - 2 >= last_i
+                            and dev.has_frame(disp - 2)):
+                        ref0b = disp - 2
+                hd = dev.dispatch_bg(disp, qp, qp_y, qp_u, qp_v, ref_poc=ref,
+                                     ref0b_poc=ref0b)
+                if par_ai:
+                    hd = self._code_pool.submit(code_ai, (y, u, v), hd, disp,
+                                                trace.now())
+                pending.append(((y, u, v), hd, disp))
             disp += 1
 
         def code_next():
-            yuv, hd = pending.popleft()
-            if par_ai:
-                qp = self._slice_qp(SLICE_I)
-                payload, bin_count, rec_y, rec_u, rec_v, _tl = hd.result()
-                nut = NUT_IDR if (self.pic_cnt == 0
-                                  or p.closed_gop) else NUT_NONIDR
-                self.last_intra_poc = self.poc
-                out = b""
-                if self.pic_cnt == 0 or nut == NUT_IDR:
-                    out += self._headers()
-                out, rec = self._emit_i_slice(nut, out, qp, payload,
-                                              bin_count, yuv[0],
-                                              (rec_y, rec_u, rec_v))
-                return out, rec, self.poc - 1
-            bs, rec = self._encode_frame_mapped(*yuv,
-                                                analysis_pre=dev.collect(hd))
-            if p.closed_loop_ld:
-                # swap the coded frame's ring entry for its reconstruction
-                # so the NEXT P frame's ME references decoded pixels (the
-                # open-loop original-vs-recon mismatch accumulates along
-                # P chains; measured +6 BD points on LD — BDRATE.md)
-                dev.put_frame(self.poc - 1,
-                              np.asarray(rec[0], np.int16),
-                              np.asarray(rec[1], np.int16),
-                              np.asarray(rec[2], np.int16), replace=True)
-            return bs, rec, self.poc - 1
+            yuv, hd, poc = pending.popleft()
+            with trace.span("api.emit", poc=poc):
+                if par_ai:
+                    qp = self._slice_qp(SLICE_I)
+                    with trace.span("api.wait", poc=poc):
+                        payload, bin_count, rec_y, rec_u, rec_v, _tl = \
+                            hd.result()
+                    nut = NUT_IDR if (self.pic_cnt == 0
+                                      or p.closed_gop) else NUT_NONIDR
+                    self.last_intra_poc = self.poc
+                    out = b""
+                    if self.pic_cnt == 0 or nut == NUT_IDR:
+                        out += self._headers()
+                    out, rec = self._emit_i_slice(nut, out, qp, payload,
+                                                  bin_count, yuv[0],
+                                                  (rec_y, rec_u, rec_v))
+                    return out, rec, self.poc - 1
+                bs, rec = self._encode_frame_mapped(
+                    *yuv, analysis_pre=dev.collect(hd))
+                if p.closed_loop_ld:
+                    # swap the coded frame's ring entry for its reconstruction
+                    # so the NEXT P frame's ME references decoded pixels (the
+                    # open-loop original-vs-recon mismatch accumulates along
+                    # P chains; measured +6 BD points on LD — BDRATE.md)
+                    dev.put_frame(self.poc - 1,
+                                  np.asarray(rec[0], np.int16),
+                                  np.asarray(rec[1], np.int16),
+                                  np.asarray(rec[2], np.int16), replace=True)
+                return bs, rec, self.poc - 1
 
         # closed-loop LD cannot dispatch ahead (frame k's analysis needs
         # frame k-1's reconstruction); open-loop overlaps `ahead` frames
@@ -1297,13 +1306,15 @@ class GopEncoder(Encoder):
             return
         dev = self._device()
         for fr in frames:
-            self._gop_in.append(self._pad_input(*fr))
-            # stream the upload NOW (display poc == derived poc for full
-            # sub-GOPs) so the ~6 MB/frame device transfer overlaps the
-            # previous sub-GOP's native coding pass instead of stalling
-            # the first collects at the sub-GOP boundary
-            dev.put_frame(self._gop_base + len(self._gop_in) - 1,
-                          *self._gop_in[-1])
+            poc = self._gop_base + len(self._gop_in)
+            with trace.span("api.feed", poc=poc):
+                self._gop_in.append(self._pad_input(*fr))
+                # stream the upload NOW (display poc == derived poc for
+                # full sub-GOPs) so the ~6 MB/frame device transfer
+                # overlaps the previous sub-GOP's native coding pass
+                # instead of stalling the first collects at the sub-GOP
+                # boundary
+                dev.put_frame(poc, *self._gop_in[-1])
             if not self._first_done:
                 self._poc_state.derive(True, 0, 4)
                 bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
@@ -1316,34 +1327,36 @@ class GopEncoder(Encoder):
 
     def _encode_subgop_pipelined(self, dev):
         base = self._gop_base
-        order = self._ra_order_derived(base)
-        for (poc, disp, _tid, _is_ref) in order:
-            y, u, v = self._gop_in[disp - base]
-            dev.put_frame(poc, y, u, v)
-        handles = []
-        shadow = self._shadow_dpb()
-        frozen_lists = {}
-        for (poc, disp, tid, is_ref) in order:
-            depth = 1 if disp % 16 == 0 else tid + 1
-            qp = self._ra_qp(depth) if self.rc is None \
-                else self._qp_guess(SLICE_B)
-            qp_y, qp_u, qp_v = self._qp_triplet(qp)
-            # freeze the coding-time ref list STRUCTURE from the shadow DPB
-            # (identical derivation to the _encode_ra_frame call); the
-            # frame-parallel coding pass resolves the recon content later
-            l0, l1 = picman_np.build_ref_lists(
-                shadow, poc, tid, SLICE_B, SLICE_P, SLICE_B,
-                self.sps.max_num_ref_pics, -(10 ** 9))
-            frozen_lists[poc] = ([q["poc"] for q in l0],
-                                 [q["poc"] for q in l1])
-            ref0, ref0b, ref1, ref1b = self._predict_refs(shadow, dev,
-                                                          poc, tid, base)
-            hd = dev.dispatch_bg(poc, qp, qp_y, qp_u, qp_v,
-                                 ref_poc=ref0, ref1_poc=ref1,
-                                 ref0b_poc=ref0b, ref1b_poc=ref1b)
-            handles.append((poc, disp, tid, is_ref, hd, ref0, ref1, qp))
-            picman_np.dpb_mark_and_insert(
-                shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
+        with trace.span("api.schedule", base=base):
+            order = self._ra_order_derived(base)
+            for (poc, disp, _tid, _is_ref) in order:
+                y, u, v = self._gop_in[disp - base]
+                dev.put_frame(poc, y, u, v)
+            handles = []
+            shadow = self._shadow_dpb()
+            frozen_lists = {}
+            for (poc, disp, tid, is_ref) in order:
+                depth = 1 if disp % 16 == 0 else tid + 1
+                qp = self._ra_qp(depth) if self.rc is None \
+                    else self._qp_guess(SLICE_B)
+                qp_y, qp_u, qp_v = self._qp_triplet(qp)
+                # freeze the coding-time ref list STRUCTURE from the shadow
+                # DPB (identical derivation to the _encode_ra_frame call);
+                # the frame-parallel coding pass resolves the recon content
+                # later
+                l0, l1 = picman_np.build_ref_lists(
+                    shadow, poc, tid, SLICE_B, SLICE_P, SLICE_B,
+                    self.sps.max_num_ref_pics, -(10 ** 9))
+                frozen_lists[poc] = ([q["poc"] for q in l0],
+                                     [q["poc"] for q in l1])
+                ref0, ref0b, ref1, ref1b = self._predict_refs(shadow, dev,
+                                                              poc, tid, base)
+                hd = dev.dispatch_bg(poc, qp, qp_y, qp_u, qp_v,
+                                     ref_poc=ref0, ref1_poc=ref1,
+                                     ref0b_poc=ref0b, ref1b_poc=ref1b)
+                handles.append((poc, disp, tid, is_ref, hd, ref0, ref1, qp))
+                picman_np.dpb_mark_and_insert(
+                    shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
         # with RC each frame's qp depends on the bits of the one before it,
         # so the sub-GOP codes serially
         if (self.rc is None and self.p.aq_mode < 2
@@ -1397,37 +1410,39 @@ class GopEncoder(Encoder):
                 return dpb_by_poc[q]
             return futures[q].result()["entry"]
 
-        def task(poc, disp, tid, is_ref, hd, qp):
-            y, u, v = self._gop_in[disp - base]
-            y = np.asarray(y, np.int32)
-            u = np.asarray(u, np.int32)
-            v = np.asarray(v, np.int32)
-            l0p, l1p = frozen_lists[poc]
-            refp = [resolve(q) for q in l0p]
-            refp1 = [resolve(q) for q in l1p]
-            an = dev.collect(hd)
-            if (refp1 and getattr(an, "mv1", None) is None
-                    and getattr(an, "mv", None) is not None):
-                an.mv1 = {lg: m for lg, m in an.mv.items()}
-            aq_map = self._aq_map(y, u, v)
-            payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
-                self._code_slice(SLICE_B, poc, qp, y, u, v, an, refp, refp1,
-                                 aq_map=aq_map)
-            entry = {
-                "poc": poc, "tid": tid, "ref": is_ref,
-                "list0_poc": refp[0]["poc"] if refp else poc,
-                "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32),
-                                           PAD_L),
-                "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32),
-                                           PAD_L // 2),
-                "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32),
-                                           PAD_L // 2),
-                "map_mv": map_mv,
-            }
-            return {"payload": payload, "bin_count": bin_count,
-                    "rec": (rec_y, rec_u, rec_v), "entry": entry,
-                    "tile_lens": tile_lens, "y": y,
-                    "l0p": l0p, "l1p": l1p}
+        def task(poc, disp, tid, is_ref, hd, qp, t_submit):
+            with trace.span("frame.task", poc=disp, t_submit=t_submit,
+                            deps=_deps(poc), base=base):
+                y, u, v = self._gop_in[disp - base]
+                y = np.asarray(y, np.int32)
+                u = np.asarray(u, np.int32)
+                v = np.asarray(v, np.int32)
+                l0p, l1p = frozen_lists[poc]
+                refp = [resolve(q) for q in l0p]
+                refp1 = [resolve(q) for q in l1p]
+                an = dev.collect(hd)
+                if (refp1 and getattr(an, "mv1", None) is None
+                        and getattr(an, "mv", None) is not None):
+                    an.mv1 = {lg: m for lg, m in an.mv.items()}
+                aq_map = self._aq_map(y, u, v)
+                payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
+                    self._code_slice(SLICE_B, poc, qp, y, u, v, an, refp,
+                                     refp1, aq_map=aq_map)
+                entry = {
+                    "poc": poc, "tid": tid, "ref": is_ref,
+                    "list0_poc": refp[0]["poc"] if refp else poc,
+                    "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32),
+                                               PAD_L),
+                    "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32),
+                                               PAD_L // 2),
+                    "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32),
+                                               PAD_L // 2),
+                    "map_mv": map_mv,
+                }
+                return {"payload": payload, "bin_count": bin_count,
+                        "rec": (rec_y, rec_u, rec_v), "entry": entry,
+                        "tile_lens": tile_lens, "y": y,
+                        "l0p": l0p, "l1p": l1p}
 
         # dependency-gated submission: a task is handed to the pool only
         # once every ref it needs is reconstructed, so workers NEVER block
@@ -1450,42 +1465,45 @@ class GopEncoder(Encoder):
                     if all(q in futures and futures[q].done()
                            for q in _deps(poc)):
                         fu = self._code_pool.submit(task, poc, disp, tid,
-                                                    is_ref, hd, qp)
+                                                    is_ref, hd, qp,
+                                                    trace.now())
                         futures[poc] = fu
                         submitted.add(poc)
                         fu.add_done_callback(lambda _f: _try_submit())
 
         _try_submit()
         for (poc, disp, tid, is_ref, _hd, _r0, _r1, qp) in handles:
-            while True:
-                with sched_lock:
-                    fu = futures.get(poc)
-                if fu is not None:
-                    break
-                time.sleep(0.0005)
-            r = fu.result()
-            sh = SliceHeader(slice_type=SLICE_B, qp=qp,
-                             qp_u_offset=p.qp_cb_offset,
-                             qp_v_offset=p.qp_cr_offset,
-                             deblocking_filter_on=1 if p.use_deblock else 0)
-            self._sh_tiles(sh, r["tile_lens"])
-            bw = BitWriter()
-            NalHeader(NUT_NONIDR, tid).write(bw)
-            sh.write(bw, NUT_NONIDR, self.sps, self.pps)
-            payload = bw.get_bytes() + r["payload"]
-            payload += self._cabac_zero_words(r["bin_count"], len(payload))
-            out = wrap_nal(payload)
-            rec_y, rec_u, rec_v = r["rec"]
-            if p.use_pic_sign:
-                out += self._signature_sei(rec_y, rec_u, rec_v)
-            self._rc_update(SLICE_B, qp, len(out))
-            self._prev_orig_y = r["y"]
-            picman_np.dpb_mark_and_insert(self.dpb, r["entry"], False)
-            self.pic_cnt += 1
-            self.last_stat = Stat(
-                bytes=len(out), nalu_type=NUT_NONIDR, slice_type=SLICE_B,
-                qp=qp, poc=poc, tid=tid, ref_pocs_l0=list(r["l0p"]),
-                ref_pocs_l1=list(r["l1p"]))
+            with trace.span("api.emit", poc=disp):
+                with trace.span("api.wait", poc=disp):
+                    while True:
+                        with sched_lock:
+                            fu = futures.get(poc)
+                        if fu is not None:
+                            break
+                        time.sleep(0.0005)
+                    r = fu.result()
+                sh = SliceHeader(
+                    slice_type=SLICE_B, qp=qp, qp_u_offset=p.qp_cb_offset,
+                    qp_v_offset=p.qp_cr_offset,
+                    deblocking_filter_on=1 if p.use_deblock else 0)
+                self._sh_tiles(sh, r["tile_lens"])
+                bw = BitWriter()
+                NalHeader(NUT_NONIDR, tid).write(bw)
+                sh.write(bw, NUT_NONIDR, self.sps, self.pps)
+                payload = bw.get_bytes() + r["payload"]
+                payload += self._cabac_zero_words(r["bin_count"], len(payload))
+                out = wrap_nal(payload)
+                rec_y, rec_u, rec_v = r["rec"]
+                if p.use_pic_sign:
+                    out += self._signature_sei(rec_y, rec_u, rec_v)
+                self._rc_update(SLICE_B, qp, len(out))
+                self._prev_orig_y = r["y"]
+                picman_np.dpb_mark_and_insert(self.dpb, r["entry"], False)
+                self.pic_cnt += 1
+                self.last_stat = Stat(
+                    bytes=len(out), nalu_type=NUT_NONIDR, slice_type=SLICE_B,
+                    qp=qp, poc=poc, tid=tid, ref_pocs_l0=list(r["l0p"]),
+                    ref_pocs_l1=list(r["l1p"]))
             yield out, (rec_y, rec_u, rec_v), disp
         self._gop_base = base + 16
         self._gop_in = self._gop_in[-1:]

@@ -9,12 +9,22 @@ one int16 vector; collect() makes the one device-to-host copy.  Motion
 estimation runs against original frames, so analysis never waits for
 reconstruction and can run ahead of the closed-loop C coding pass.
 
-Every op of a dispatch is enqueued on the device's current stream from
-the single dispatcher thread, so uploads, dispatches and the readback in
-collect() keep their order without events.  The dispatch makes no
-blocking host copy: constant tables are uploaded once per device
+Uploads and dispatches are enqueued from the single dispatcher thread on
+its current stream, the device's default stream; collect() enqueues the
+readback on the same stream from the thread that calls it (a frame worker
+of api.py, or the main thread), so all of them keep their order without
+events.  The readback therefore waits for every op enqueued on that
+stream before it: its own dispatch's, and those of any later dispatches
+that the dispatcher thread enqueued in the meantime.  The dispatch makes
+no blocking host copy: constant tables are uploaded once per device
 (winmc_torch.const), parameters and frames are copied without a stream
 synchronisation.
+
+While xeve_tpu_torch.trace records, _upload, dispatch and collect are
+spans (`device_analyzer.upload`, `.dispatch`, `.collect`), and collect's
+wait for a dispatch_bg Future and its readback are child spans
+(`device_analyzer.queue`, `.readback`; the readback's `behind` counts
+the dispatches made after this one before its copy was enqueued).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..ops import mc_np
 from .analysis_inter_np import (InterAnalysisResult, ME_BLK_LOG2,
@@ -320,8 +331,11 @@ def _fused_impl(y16, u16, v16, ref0, ref0b, ref1, ref1b, prms, prm3, *,
 
 class _DeviceVec:
     """A dispatch's packed vector on its device.  np.asarray() copies it to
-    the host (a CUDA tensor's own __array__ raises); the copy runs on the
-    stream of the dispatch, so it orders after every op of it."""
+    the host (a CUDA tensor's own __array__ raises) on the calling thread's
+    current stream, the device's default stream that the dispatch was
+    enqueued on, and blocks that thread until the copy is done: after every
+    op enqueued on the stream before it, its own dispatch's and those of
+    any later dispatch enqueued first."""
     __slots__ = ("t",)
 
     def __init__(self, t):
@@ -339,11 +353,12 @@ class _Handle:
     failure recovery (re-dispatch / host fallback).  Copy of
     device_analyzer._Handle (:355)."""
     __slots__ = ("vec", "kind", "h", "w", "min_log2", "max_log2", "planes",
-                 "args")
+                 "args", "seq")
 
     def __init__(self, vec, kind, h, w, min_log2, max_log2, planes=None,
-                 args=None):
+                 args=None, seq=None):
         self.vec = vec
+        self.seq = seq      # the analyzer's `dispatches` after this one
         self.kind = kind
         self.h, self.w = h, w
         self.min_log2, self.max_log2 = min_log2, max_log2
@@ -420,11 +435,12 @@ class DeviceAnalyzer:
         self._submit(self._upload, poc, hy, hu, hv)
 
     def _upload(self, poc, hy, hu, hv):
-        self.ring[poc] = (self._to_device(hy), self._to_device(hu),
-                          self._to_device(hv))
-        if len(self.ring) > self.ring_size:
-            for k in sorted(self.ring)[:len(self.ring) - self.ring_size]:
-                del self.ring[k]
+        with trace.span("device_analyzer.upload", poc=poc):
+            self.ring[poc] = (self._to_device(hy), self._to_device(hu),
+                              self._to_device(hv))
+            if len(self.ring) > self.ring_size:
+                for k in sorted(self.ring)[:len(self.ring) - self.ring_size]:
+                    del self.ring[k]
 
     def has_frame(self, poc: int) -> bool:
         return poc in self.host_ring
@@ -458,31 +474,34 @@ class DeviceAnalyzer:
                  ref0b_poc: int | None = None,
                  ref1b_poc: int | None = None,
                  bi_refine: bool = True) -> _Handle:
-        y, u, v = self.ring_get(poc)
-        kind = "I" if ref_poc is None else (
-            "B" if (ref1_poc is not None and ref1_poc != ref_poc) else "P")
-        prms, prm3 = self.params(qp, qp_y, qp_u, qp_v)
-        ref0 = self.ring_get(ref_poc) if kind in ("P", "B") else None
-        ref1 = self.ring_get(ref1_poc) if kind == "B" else None
-        ref0b = (self.ring_get(ref0b_poc)
-                 if (kind != "I" and ref0b_poc is not None
-                     and ref0b_poc in self.host_ring) else None)
-        ref1b = (self.ring_get(ref1b_poc)
-                 if (kind == "B" and ref1b_poc is not None
-                     and ref1b_poc in self.host_ring) else None)
-        refine = bool(bi_refine and kind == "B")
-        vec = _fused_impl(y, u, v, ref0, ref0b, ref1, ref1b, prms, prm3,
-                          bd=self.bd, R=self.R, pad=PAD,
-                          min_log2=self.min_log2, max_log2=self.max_log2,
-                          refine=refine)
-        with self._count_lock:
-            self.dispatches += 1
-        planes = (ref0 is not None, ref0b is not None, ref1 is not None,
-                  ref1b is not None, refine)
+        with trace.span("device_analyzer.dispatch", poc=poc) as sp:
+            y, u, v = self.ring_get(poc)
+            kind = "I" if ref_poc is None else (
+                "B" if (ref1_poc is not None and ref1_poc != ref_poc) else "P")
+            prms, prm3 = self.params(qp, qp_y, qp_u, qp_v)
+            ref0 = self.ring_get(ref_poc) if kind in ("P", "B") else None
+            ref1 = self.ring_get(ref1_poc) if kind == "B" else None
+            ref0b = (self.ring_get(ref0b_poc)
+                     if (kind != "I" and ref0b_poc is not None
+                         and ref0b_poc in self.host_ring) else None)
+            ref1b = (self.ring_get(ref1b_poc)
+                     if (kind == "B" and ref1b_poc is not None
+                         and ref1b_poc in self.host_ring) else None)
+            refine = bool(bi_refine and kind == "B")
+            vec = _fused_impl(y, u, v, ref0, ref0b, ref1, ref1b, prms, prm3,
+                              bd=self.bd, R=self.R, pad=PAD,
+                              min_log2=self.min_log2, max_log2=self.max_log2,
+                              refine=refine)
+            with self._count_lock:
+                self.dispatches += 1
+                seq = self.dispatches
+            planes = (ref0 is not None, ref0b is not None, ref1 is not None,
+                      ref1b is not None, refine)
+            sp.set(kind=kind, seq=seq)
         return _Handle(_DeviceVec(vec), kind, self.h, self.w, self.min_log2,
                        self.max_log2, planes=planes,
                        args=(poc, qp, qp_y, qp_u, qp_v, ref_poc, ref1_poc,
-                             ref0b_poc, ref1b_poc, bi_refine))
+                             ref0b_poc, ref1b_poc, bi_refine), seq=seq)
 
     # -- failure recovery ------------------------------------------------
     def _redispatch(self, hd: _Handle) -> _Handle:
@@ -532,20 +551,28 @@ class DeviceAnalyzer:
         pass consumes.  Accepts a _Handle or a dispatch_bg Future.  On a
         device failure: one re-dispatch, then the numpy-oracle fallback
         (the JAX twin's recovery contract, :545)."""
-        if hasattr(hd, "result"):
-            hd = hd.result()
-        try:
-            vec = np.asarray(hd.vec)
-        except Exception:
-            self.failures += 1
-            if hd.args is None:
-                raise
+        with trace.span("device_analyzer.collect") as sp:
+            if hasattr(hd, "result"):
+                with trace.span("device_analyzer.queue") as q:
+                    hd = hd.result()
+                    q.set(poc=hd.args[0] if hd.args else None)
+            poc = hd.args[0] if hd.args else None
+            sp.set(poc=poc)
+            behind = None if hd.seq is None else self.dispatches - hd.seq
             try:
-                hd = self._redispatch(hd)
-                vec = np.asarray(hd.vec)
+                with trace.span("device_analyzer.readback", poc=poc,
+                                behind=behind):
+                    vec = np.asarray(hd.vec)
             except Exception:
-                return self._host_fallback(hd)
-        return self._parse(hd, vec)
+                self.failures += 1
+                if hd.args is None:
+                    raise
+                try:
+                    hd = self._redispatch(hd)
+                    vec = np.asarray(hd.vec)
+                except Exception:
+                    return self._host_fallback(hd)
+            return self._parse(hd, vec)
 
     def _parse(self, hd: _Handle, vec):
         """Packed vector -> decision maps.  Copy of

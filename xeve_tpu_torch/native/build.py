@@ -9,6 +9,14 @@ be loaded side by side in one process: ctypes loads each RTLD_LOCAL and
 the sources are compiled with -fvisibility=hidden.  gcc writes a
 temporary file that is then renamed into place, so that concurrent first
 uses (test workers) never load a half-written library.
+
+While xeve_tpu_torch.trace records, the build-or-load of the library is a
+`native.load` span (`built`: whether gcc ran), and each call of a frame
+entry point (xt_encode_frame, xt_encode_intra_frame,
+xt_encode_main_intra_frame) a `native.ccall` span around the foreign
+call alone, in which the calling thread has released the GIL.  Its
+`poc` is the inter pass's poc argument, or for an intra pass the `poc`
+of the span the caller has open (a frame worker's `frame.task`).
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import os
 import subprocess
 import threading
 
+from .. import trace
 from ..ops._build import BUILD_DIR
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -90,10 +99,25 @@ def get_lib():
     global _lib
     with _lock:
         if _lib is None:
-            if _needs_build():
-                build()
-            _lib = _bind(ctypes.CDLL(_SO))
+            with trace.span("native.load") as sp:
+                built = _needs_build()
+                if built:
+                    build()
+                _lib = _bind(ctypes.CDLL(_SO))
+                sp.set(built=built)
     return _lib
+
+
+def _ccall(fn, poc_arg=None):
+    """fn (a bound entry point) inside a native.ccall span."""
+    def call(*args):
+        if poc_arg is None:
+            poc = trace.attr("poc")
+        else:       # a ctypes c_int32, or a plain int
+            poc = getattr(args[poc_arg], "value", args[poc_arg])
+        with trace.span("native.ccall", poc=poc):
+            return fn(*args)
+    return call
 
 
 def _bind(lib):
@@ -133,4 +157,7 @@ def _bind(lib):
         i32p, ctypes.POINTER(ctypes.c_int8),
         ctypes.POINTER(XtStats),
     ]
+    lib.xt_encode_frame = _ccall(lib.xt_encode_frame, poc_arg=2)
+    lib.xt_encode_intra_frame = _ccall(lib.xt_encode_intra_frame)
+    lib.xt_encode_main_intra_frame = _ccall(lib.xt_encode_main_intra_frame)
     return lib
