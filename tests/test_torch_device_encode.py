@@ -1,8 +1,9 @@
 """End to end on the CPU with the device engine: the torch port's
 `analysis="device"` streams equal the JAX device engine's byte for byte
 (twins of test_device_analyzer.py and test_frame_parallel.py, plus a
-placebo RA stream that codes the second reference of each list), decode
-bit-exactly, and every frame went through one fused dispatch."""
+placebo RA stream that codes the second reference of each list, and RA
+streams of several sub-GOPs whose C passes overlap), decode bit-exactly,
+and every frame went through one fused dispatch."""
 import numpy as np
 import pytest
 
@@ -91,3 +92,21 @@ def test_placebo_ra_codes_second_refs(monkeypatch):
     _check(dict(w=W, h=H, qp=32, keyint=0, bframes=15, preset="placebo"),
            _frames(18), cls="GopEncoder")
     assert any(pl[1] for pl in planes) and any(pl[3] for pl in planes)
+
+
+@pytest.mark.parametrize("workers,preset", [(4, "medium"), (1, "medium"),
+                                            (4, "placebo")])
+def test_ra_subgops_overlap_equals_jax(workers, preset, monkeypatch):
+    """Three full sub-GOPs and a truncated tail: on more than one worker
+    sub-GOP k+1's anchor is handed to a worker before sub-GOP k's last
+    emission (once anchor k is done, before k's other 15 emissions), and
+    placebo's second refs reach into the previous sub-GOP."""
+    monkeypatch.setenv("XEVE_TPU_FRAME_WORKERS", str(workers))
+    enc = _check(dict(w=W, h=H, qp=32, keyint=0, bframes=15, preset=preset),
+                 _frames(52), cls="GopEncoder")
+    if workers > 1:
+        assert enc.ahead_tasks >= 2
+    else:
+        assert enc.ahead_tasks == 0
+    assert (enc._gop_base, len(enc._gop_in)) == (51, 1)
+

@@ -1,9 +1,10 @@
 """xeve_tpu_torch.trace: the recorder's semantics, and the spans of the
-device engine's frame pipeline on the CPU (RA GOP16 and all-intra on two
-frame workers, at the size test_torch_device_encode.py uses): one task
-and one C call per coded frame under its display index, the RA tasks'
-dependencies, children inside their parents, and the same bitstream with
-the recorder on and off."""
+device engine's frame pipeline on the CPU (RA GOP16 over one and over two
+sub-GOPs, and all-intra, on two frame workers, at the size
+test_torch_device_encode.py uses): one task and one C call per coded
+frame under its display index, the RA tasks' dependencies and the
+sub-GOPs in flight before theirs, children inside their parents, and the
+same bitstream with the recorder on and off."""
 import threading
 
 import numpy as np
@@ -133,6 +134,8 @@ def _ancestor(recs, r, name):
 CASES = {
     "ra": ("GopEncoder", dict(w=W, h=H, qp=30, keyint=0, bframes=15), 18),
     "ai": ("Encoder", dict(w=W, h=H, qp=30, keyint=1), 5),
+    "ra_subgops": ("GopEncoder", dict(w=W, h=H, qp=30, keyint=0,
+                                      bframes=15), 34),
 }
 
 
@@ -140,6 +143,7 @@ CASES = {
 def test_frame_pipeline_spans(case, monkeypatch):
     monkeypatch.setenv("XEVE_TPU_FRAME_WORKERS", "2")
     cls, p, n = CASES[case]
+    ra = case.startswith("ra")
     frames = _frames(n)
     _enc, plain = _encode(cls, p, frames)
     trace.start()
@@ -150,7 +154,8 @@ def test_frame_pipeline_spans(case, monkeypatch):
     _check_nesting(recs)
 
     tasks = [r for r in recs if r["name"] == "frame.task"]
-    coded = list(range(1, 17)) if case == "ra" else list(range(n))
+    # RA: the frames of the full sub-GOPs
+    coded = list(range(1, (n - 1) // 16 * 16 + 1)) if ra else list(range(n))
     assert sorted(r["attrs"]["poc"] for r in tasks) == coded
     assert all(r["thread"].startswith("xt-frame") for r in tasks)
     assert all(r["attrs"]["t_submit"] <= r["t0"] for r in tasks)
@@ -165,7 +170,7 @@ def test_frame_pipeline_spans(case, monkeypatch):
                                           for v in under.values())
     # RA: the I frame and the truncated last sub-GOP code on the main thread
     assert sorted(r["attrs"]["poc"] for r in ccall) == \
-        (list(range(n)) if case == "ra" else coded)
+        (list(range(n)) if ra else coded)
 
     for r in recs:
         if r["name"] in ("device_analyzer.queue", "device_analyzer.readback",
@@ -177,7 +182,7 @@ def test_frame_pipeline_spans(case, monkeypatch):
     kind = {r["attrs"]["poc"]: r["attrs"]["kind"] for r in dispatches}
     # RA: the anchor's two lists hold the I frame alone, a P signature
     assert {kind[poc] for poc in coded} == \
-        ({"P", "B"} if case == "ra" else {"I"})
+        ({"P", "B"} if ra else {"I"})
     assert all(r["thread"].startswith("xt-dispatch") for r in recs
                if r["name"] == "device_analyzer.upload")
     readback = [r for r in recs if r["name"] == "device_analyzer.readback"]
@@ -193,13 +198,32 @@ def test_frame_pipeline_spans(case, monkeypatch):
     assert [r["attrs"]["poc"] for r in feeds] == list(range(n))
     sched = [r for r in recs if r["name"] == "api.schedule"]
     assert [r["attrs"] for r in sched] == (
-        [{"base": 0}] if case == "ra" else [{"poc": i} for i in range(n)])
+        [{"base": b} for b in range(0, len(coded), 16)] if ra
+        else [{"poc": i} for i in range(n)])
 
-    if case == "ra":
+    if ra:
         # deps: the POCs of each frame's coded ref lists outside the DPB
-        # at the sub-GOP's start (which holds the I frame alone)
+        # when its sub-GOP was scheduled: the I frame and the sub-GOPs
+        # emitted by then, all but the _SUBGOPS_IN_FLIGHT - 1 before it
         lists = {poc: l for _bs, poc, l in traced if l is not None}
         for r in tasks:
-            l0, l1 = lists[r["attrs"]["poc"]]
-            assert r["attrs"]["deps"] == [q for q in l0 + l1 if q != 0]
-            assert r["attrs"]["base"] == 0
+            a = r["attrs"]
+            base = (a["poc"] - 1) // 16 * 16
+            in_dpb = max(base - 16 * (api._SUBGOPS_IN_FLIGHT - 1), 0)
+            l0, l1 = lists[a["poc"]]
+            assert a["deps"] == [q for q in l0 + l1 if q > in_dpb]
+            assert a["base"] == base
+            # sub-GOPs scheduled before this one and not fully emitted
+            assert 0 <= a["ahead"] <= min(base // 16,
+                                          api._SUBGOPS_IN_FLIGHT - 1)
+        assert enc.ahead_tasks == sum(1 for r in tasks if r["attrs"]["ahead"])
+        if case == "ra_subgops":
+            # sub-GOP 2's anchor depends on sub-GOP 1's and starts before
+            # sub-GOP 1's last emission
+            anchor = next(r for r in tasks if r["attrs"]["poc"] == 32)
+            assert 16 in anchor["attrs"]["deps"]
+            assert anchor["attrs"]["ahead"] == 1
+            last_emit = max(r["t1"] for r in emits if r["attrs"]["poc"] <= 16)
+            assert anchor["attrs"]["t_submit"] < last_emit
+        else:
+            assert enc.ahead_tasks == 0

@@ -7,8 +7,11 @@ explicit device.  Three analysis engines:
 - analysis="device" (the engine bench.py measures): the fused per-frame
   analyzer, enc/device_analyzer.DeviceAnalyzer, behind `_device()`.  AI
   runs frame-parallel C passes, LD-P dispatches ahead (or runs closed
-  loop), RA pipelines each sub-GOP into the frame-parallel C pass.
-  `_device().dispatches` counts the frames it analysed.
+  loop), RA pipelines each sub-GOP into the frame-DAG C pass, where
+  sub-GOP k+1's frames code while sub-GOP k is still emitted (_FrameDag).
+  `_device().dispatches` counts the frames it analysed, `ahead_tasks` the
+  RA frames handed to a frame worker while an earlier sub-GOP still had
+  frames to emit.
 - analysis="jax" (default): the JAX engine's per-frame analysis in torch:
   I slices through enc/analysis_torch (Baseline) or the 33-mode EIPD
   analysis enc/analysis_main_torch (Main), P and B slices through
@@ -129,6 +132,15 @@ from .params import EncoderParams
 
 CABAC_ZERO_PARAM = 32
 
+# RA sub-GOPs scheduled on the frame-DAG C pass and not yet fully emitted:
+# the one being emitted and the two after it (at 1080p on 4 frame workers 3
+# coded 1.27x the frames a second of 2, and 4 no more than 3; PERF.md §6)
+_SUBGOPS_IN_FLIGHT = 3
+# the fused analysis takes a reference original only from the newest 24
+# originals fed: what the analyzer's ring held before sub-GOPs overlapped,
+# and what the JAX package's holds, so the dispatches stay the same
+_ANALYSIS_REF_WINDOW = 24
+
 
 @dataclass
 class Stat:
@@ -147,6 +159,8 @@ class Stat:
 class Encoder:
     """EVC Baseline and Main encoder (AI / low-delay / RA via
     GopEncoder)."""
+
+    _RING_FRAMES = 24      # the device analyzer's original-frame ring
 
     def __init__(self, params: EncoderParams, analysis: str = "jax",
                  coder: str = "native", device="cuda", me_engine=None):
@@ -182,6 +196,7 @@ class Encoder:
             raise ValueError("multi-ref (ref_pics>1) requires the native "
                              "coding pass")
         self.analysis_calls = 0
+        self.ahead_tasks = 0
         self._batch_analyzer = None
         self._dev = None
         self._code_pool = None     # frame-parallel C-pass workers
@@ -466,7 +481,8 @@ class Encoder:
             self._dev = DeviceAnalyzer(
                 p.w_aligned, p.h_aligned, p.codec_bit_depth,
                 search_range=p.search_range, min_log2=p.min_cu_log2,
-                device=self.device, integer_me_fn=self._integer_me)
+                ring_size=self._RING_FRAMES, device=self.device,
+                integer_me_fn=self._integer_me)
         return self._dev
 
     def prewarm(self) -> float:
@@ -984,9 +1000,16 @@ class Encoder:
         future frames runs on the device while the native C pass codes the
         current frame (analysis references *original* frames, so it never
         waits for reconstruction).
+
+        Closing the stream closes the route's own generator at once, so
+        its frame workers submit nothing more.
         """
-        for bs, rec, poc in self._encode_stream(frames, ahead):
-            yield bs, self._dra_backward(rec), poc
+        stream = self._encode_stream(frames, ahead)
+        try:
+            for bs, rec, poc in stream:
+                yield bs, self._dra_backward(rec), poc
+        finally:
+            stream.close()
 
     def _encode_stream(self, frames, ahead):
         """encode_stream with mapped-domain reconstructions (AI/LD)."""
@@ -1181,9 +1204,97 @@ def psnr(a: np.ndarray, b: np.ndarray, bd: int = 10) -> float:
 # ----------------------------------------------------------------------
 
 
+@dataclass(eq=False)
+class _Subgop:
+    """One RA sub-GOP scheduled on the frame-DAG C pass: its 17 input
+    frames (index: display poc - base), its tasks in coding order (poc,
+    display poc, tid, is_ref, dispatch handle, qp), their frozen ref lists
+    by poc, and the DPB entries by poc when it was scheduled."""
+    base: int
+    frames: list
+    items: list
+    lists: dict
+    snap: dict
+    deps: dict = field(init=False)
+
+    def __post_init__(self):
+        # the POCs of each frame's lists whose recon a task makes
+        self.deps = {poc: [q for q in l0 + l1 if q not in self.snap]
+                     for poc, (l0, l1) in self.lists.items()}
+
+
+class _FrameDag:
+    """The frame-DAG C pass of an RA stream on the device engine, one for
+    all its sub-GOPs: each frame's closed-loop C pass is a task on the
+    encoder's `xt-frame` pool, handed to it once every frame of its frozen
+    ref lists is in its sub-GOP's DPB snapshot or a done task, so a worker
+    never blocks on a reference (a blocked worker would hold a slot and
+    serialize the sub-GOP behind the anchor chain: wall time == sum of C
+    passes).  Ready tasks go in coding order, older sub-GOP first.
+    `subgops` holds the scheduled sub-GOPs not yet fully emitted, oldest
+    first; `shadow` the shadow DPB after the last one's simulated inserts;
+    `futures` the tasks by poc, while a sub-GOP in flight or a task not yet
+    submitted may need them."""
+
+    def __init__(self, enc, dev):
+        self.enc, self.dev = enc, dev
+        self.lock = threading.RLock()   # done-callbacks can re-enter
+        self.futures = {}
+        self.pending = []               # (sub-GOP, item) not yet submitted
+        self.subgops = deque()
+        self.shadow = None
+        self.closed = False
+
+    def schedule(self, sg):
+        with self.lock:
+            self.subgops.append(sg)
+            self.pending.extend((sg, it) for it in sg.items)
+        self._submit_ready()
+
+    def _submit_ready(self):
+        with self.lock:
+            while not self.closed:
+                ready = next((i for i, (sg, it) in enumerate(self.pending)
+                              if all(q in self.futures
+                                     and self.futures[q].done()
+                                     for q in sg.deps[it[0]])), None)
+                if ready is None:
+                    return
+                sg, it = self.pending.pop(ready)
+                ahead = self.subgops.index(sg)
+                if ahead:
+                    self.enc.ahead_tasks += 1
+                fu = self.enc._code_pool.submit(
+                    self.enc._code_frame_task, self.dev, sg, it,
+                    {q: self.futures[q] for q in sg.deps[it[0]]}, ahead,
+                    trace.now())
+                self.futures[it[0]] = fu
+                fu.add_done_callback(lambda _f: self._submit_ready())
+
+    def retire(self, sg):
+        """The last frame of `sg`, the oldest sub-GOP, is emitted."""
+        with self.lock:
+            self.subgops.remove(sg)
+            live = {q for s in self.subgops for q in s.lists}
+            live.update(q for s, it in self.pending for q in s.deps[it[0]])
+            self.futures = {q: f for q, f in self.futures.items()
+                            if q in live}
+
+    def close(self):
+        """The stream ends or is closed: no callback submits again."""
+        with self.lock:
+            self.closed = True
+            self.pending.clear()
+
+
 class GopEncoder(Encoder):
     """Push/flush interface with RA GOP16 reordering when bframes >= 15;
     degenerates to streaming I/P when bframes == 0."""
+
+    # every original that an in-flight dispatch, a collect recovery or a
+    # ring_get may name: the sub-GOPs in flight, the one before them, and
+    # its base
+    _RING_FRAMES = (_SUBGOPS_IN_FLIGHT + 1) * 16 + 1
 
     def push_frame(self, y, u, v):
         """Push one display-order frame; returns the [(bs, rec, poc)] it
@@ -1294,7 +1405,11 @@ class GopEncoder(Encoder):
         """RA GOP16 stream encode, coding order (bs, rec, poc) per frame.
         With the device engine all 16 analyses of a sub-GOP are dispatched
         up front (ME against originals; hierarchical refs L0 = poc - lowbit,
-        L1 = poc + lowbit) and the native coding pass overlaps them."""
+        L1 = poc + lowbit) and the native coding pass overlaps them.
+        Without RC, with aq_mode < 2 and more than one frame worker the
+        sub-GOPs code on one frame-DAG C pass (_FrameDag): sub-GOP k+1 is
+        scheduled once its frames are fed, before sub-GOP k is emitted,
+        and the truncated tail codes after the last of them is emitted."""
         p = self.p
         if p.bframes < 15 or p.keyint == 1:
             yield from super()._encode_stream(frames, ahead)
@@ -1305,35 +1420,58 @@ class GopEncoder(Encoder):
             yield from self._flush()
             return
         dev = self._device()
-        for fr in frames:
-            poc = self._gop_base + len(self._gop_in)
-            with trace.span("api.feed", poc=poc):
-                self._gop_in.append(self._pad_input(*fr))
-                # stream the upload NOW (display poc == derived poc for
-                # full sub-GOPs) so the ~6 MB/frame device transfer
-                # overlaps the previous sub-GOP's native coding pass
-                # instead of stalling the first collects at the sub-GOP
-                # boundary
-                dev.put_frame(poc, *self._gop_in[-1])
-            if not self._first_done:
-                self._poc_state.derive(True, 0, 4)
-                bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
-                self._first_done = True
-                yield bs, rec, 0
-                continue
-            if len(self._gop_in) == 17:
-                yield from self._encode_subgop_pipelined(dev)
-        yield from self._flush()
+        dag = None
+        if (self.rc is None and p.aq_mode < 2
+                and self._frame_workers() > 1):
+            if self._code_pool is None:
+                self._code_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=self._frame_workers(),
+                    thread_name_prefix="xt-frame")
+            dag = _FrameDag(self, dev)
+        try:
+            for fr in frames:
+                poc = self._gop_base + len(self._gop_in)
+                with trace.span("api.feed", poc=poc):
+                    self._gop_in.append(self._pad_input(*fr))
+                    # stream the upload NOW (display poc == derived poc for
+                    # full sub-GOPs) so the ~6 MB/frame device transfer
+                    # overlaps the previous sub-GOP's native coding pass
+                    # instead of stalling the first collects at the
+                    # sub-GOP boundary
+                    dev.put_frame(poc, *self._gop_in[-1])
+                if not self._first_done:
+                    self._poc_state.derive(True, 0, 4)
+                    bs, rec = self._encode_ra_frame(0, 0, 0, True, SLICE_I)
+                    self._first_done = True
+                    yield bs, rec, 0
+                    continue
+                if len(self._gop_in) == 17:
+                    yield from self._encode_subgop_pipelined(dev, dag)
+            while dag is not None and dag.subgops:
+                yield from self._code_subgop_parallel(dev, dag)
+            yield from self._flush()
+        finally:
+            if dag is not None:
+                dag.close()
 
-    def _encode_subgop_pipelined(self, dev):
+    def _encode_subgop_pipelined(self, dev, dag=None):
+        """Schedule the full sub-GOP at _gop_base: its 16 analyses
+        dispatched ahead with refs predicted from the shadow DPB, and the
+        coding-time ref lists frozen from it.  On the frame-DAG C pass
+        (`dag`) the sub-GOP joins the ones in flight, keeping its own
+        input frames, and the oldest are emitted until fewer than
+        _SUBGOPS_IN_FLIGHT remain; otherwise it codes serially here."""
         base = self._gop_base
+        frames = self._gop_in
         with trace.span("api.schedule", base=base):
             order = self._ra_order_derived(base)
             for (poc, disp, _tid, _is_ref) in order:
-                y, u, v = self._gop_in[disp - base]
-                dev.put_frame(poc, y, u, v)
+                dev.put_frame(poc, *frames[disp - base])
             handles = []
-            shadow = self._shadow_dpb()
+            # a sub-GOP scheduled while another is in flight starts from
+            # the shadow DPB that the other's simulated inserts left
+            shadow = dag.shadow if dag is not None and dag.subgops \
+                else self._shadow_dpb()
             frozen_lists = {}
             for (poc, disp, tid, is_ref) in order:
                 depth = 1 if disp % 16 == 0 else tid + 1
@@ -1357,12 +1495,18 @@ class GopEncoder(Encoder):
                 handles.append((poc, disp, tid, is_ref, hd, ref0, ref1, qp))
                 picman_np.dpb_mark_and_insert(
                     shadow, {"poc": poc, "tid": tid, "ref": is_ref}, False)
-        # with RC each frame's qp depends on the bits of the one before it,
-        # so the sub-GOP codes serially
-        if (self.rc is None and self.p.aq_mode < 2
-                and self._frame_workers() > 1):
-            yield from self._code_subgop_parallel(dev, handles, frozen_lists,
-                                                  base)
+            if dag is not None:
+                dag.shadow = shadow
+                self._gop_base = base + 16
+                self._gop_in = frames[-1:]
+                dag.schedule(_Subgop(
+                    base, frames,
+                    [(poc, disp, tid, is_ref, hd, qp) for
+                     (poc, disp, tid, is_ref, hd, _r0, _r1, qp) in handles],
+                    frozen_lists, {q["poc"]: q for q in self.dpb}))
+        if dag is not None:
+            while len(dag.subgops) >= _SUBGOPS_IN_FLIGHT:
+                yield from self._code_subgop_parallel(dev, dag)
             return
         # cutree-lite (aq_mode 2): collect the whole sub-GOP's analyses up
         # front and hand each reference frame the MV fields of the frames
@@ -1389,95 +1533,19 @@ class GopEncoder(Encoder):
         self._gop_base = base + 16
         self._gop_in = self._gop_in[-1:]
 
-    def _code_subgop_parallel(self, dev, handles, frozen_lists, base):
-        """Frame-DAG parallel coding of one RA sub-GOP: every frame's
-        closed-loop C pass runs as a task that blocks only on the recon of
-        the frames in its frozen ref lists.  Tasks are submitted in coding
-        order (a topological order of the hierarchy), so FIFO workers
-        cannot deadlock; emission (headers, DPB, stats) stays serial on
-        the main thread in coding order, keeping the bitstream
-        bit-identical to the serial path."""
+    def _code_subgop_parallel(self, dev, dag):
+        """Emit the oldest sub-GOP scheduled on the frame-DAG C pass:
+        each frame, in coding order, once its task is done.  Emission
+        (headers, DPB, stats) stays serial on the main thread, keeping the
+        bitstream bit-identical to the serial path."""
         p = self.p
-        if self._code_pool is None:
-            self._code_pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=self._frame_workers(),
-                thread_name_prefix="xt-frame")
-        dpb_by_poc = {q["poc"]: q for q in self.dpb}
-        futures = {}
-
-        def resolve(q):
-            if q in dpb_by_poc:
-                return dpb_by_poc[q]
-            return futures[q].result()["entry"]
-
-        def task(poc, disp, tid, is_ref, hd, qp, t_submit):
-            with trace.span("frame.task", poc=disp, t_submit=t_submit,
-                            deps=_deps(poc), base=base):
-                y, u, v = self._gop_in[disp - base]
-                y = np.asarray(y, np.int32)
-                u = np.asarray(u, np.int32)
-                v = np.asarray(v, np.int32)
-                l0p, l1p = frozen_lists[poc]
-                refp = [resolve(q) for q in l0p]
-                refp1 = [resolve(q) for q in l1p]
-                an = dev.collect(hd)
-                if (refp1 and getattr(an, "mv1", None) is None
-                        and getattr(an, "mv", None) is not None):
-                    an.mv1 = {lg: m for lg, m in an.mv.items()}
-                aq_map = self._aq_map(y, u, v)
-                payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
-                    self._code_slice(SLICE_B, poc, qp, y, u, v, an, refp,
-                                     refp1, aq_map=aq_map)
-                entry = {
-                    "poc": poc, "tid": tid, "ref": is_ref,
-                    "list0_poc": refp[0]["poc"] if refp else poc,
-                    "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32),
-                                               PAD_L),
-                    "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32),
-                                               PAD_L // 2),
-                    "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32),
-                                               PAD_L // 2),
-                    "map_mv": map_mv,
-                }
-                return {"payload": payload, "bin_count": bin_count,
-                        "rec": (rec_y, rec_u, rec_v), "entry": entry,
-                        "tile_lens": tile_lens, "y": y,
-                        "l0p": l0p, "l1p": l1p}
-
-        # dependency-gated submission: a task is handed to the pool only
-        # once every ref it needs is reconstructed, so workers NEVER block
-        # inside resolve() — a blocked worker would hold a slot and
-        # serialize the whole sub-GOP behind the anchor chain (measured:
-        # wall time == sum of C passes without this)
-        sched_lock = threading.RLock()   # done-callbacks can re-enter
-        submitted = set()
-
-        def _deps(poc):
-            l0p, l1p = frozen_lists[poc]
-            return [q for q in list(l0p) + list(l1p)
-                    if q not in dpb_by_poc]
-
-        def _try_submit():
-            with sched_lock:
-                for (poc, disp, tid, is_ref, hd, _r0, _r1, qp) in handles:
-                    if poc in submitted:
-                        continue
-                    if all(q in futures and futures[q].done()
-                           for q in _deps(poc)):
-                        fu = self._code_pool.submit(task, poc, disp, tid,
-                                                    is_ref, hd, qp,
-                                                    trace.now())
-                        futures[poc] = fu
-                        submitted.add(poc)
-                        fu.add_done_callback(lambda _f: _try_submit())
-
-        _try_submit()
-        for (poc, disp, tid, is_ref, _hd, _r0, _r1, qp) in handles:
+        sg = dag.subgops[0]
+        for i, (poc, disp, tid, _is_ref, _hd, qp) in enumerate(sg.items):
             with trace.span("api.emit", poc=disp):
                 with trace.span("api.wait", poc=disp):
                     while True:
-                        with sched_lock:
-                            fu = futures.get(poc)
+                        with dag.lock:
+                            fu = dag.futures.get(poc)
                         if fu is not None:
                             break
                         time.sleep(0.0005)
@@ -1504,9 +1572,53 @@ class GopEncoder(Encoder):
                     bytes=len(out), nalu_type=NUT_NONIDR, slice_type=SLICE_B,
                     qp=qp, poc=poc, tid=tid, ref_pocs_l0=list(r["l0p"]),
                     ref_pocs_l1=list(r["l1p"]))
+                if i == len(sg.items) - 1:
+                    dag.retire(sg)
             yield out, (rec_y, rec_u, rec_v), disp
-        self._gop_base = base + 16
-        self._gop_in = self._gop_in[-1:]
+
+    def _code_frame_task(self, dev, sg, item, refs, ahead, t_submit):
+        """One frame's closed-loop C pass on a frame worker: its
+        references are in the DPB snapshot of its sub-GOP or in `refs`,
+        the done tasks of the frames it depends on."""
+        poc, disp, tid, is_ref, hd, qp = item
+        with trace.span("frame.task", poc=disp, t_submit=t_submit,
+                        deps=sg.deps[poc], base=sg.base, ahead=ahead):
+            y, u, v = sg.frames[disp - sg.base]
+            y = np.asarray(y, np.int32)
+            u = np.asarray(u, np.int32)
+            v = np.asarray(v, np.int32)
+
+            def resolve(q):
+                if q in sg.snap:
+                    return sg.snap[q]
+                return refs[q].result()["entry"]
+
+            l0p, l1p = sg.lists[poc]
+            refp = [resolve(q) for q in l0p]
+            refp1 = [resolve(q) for q in l1p]
+            an = dev.collect(hd)
+            if (refp1 and getattr(an, "mv1", None) is None
+                    and getattr(an, "mv", None) is not None):
+                an.mv1 = {lg: m for lg, m in an.mv.items()}
+            aq_map = self._aq_map(y, u, v)
+            payload, bin_count, rec_y, rec_u, rec_v, map_mv, tile_lens = \
+                self._code_slice(SLICE_B, poc, qp, y, u, v, an, refp,
+                                 refp1, aq_map=aq_map)
+            entry = {
+                "poc": poc, "tid": tid, "ref": is_ref,
+                "list0_poc": refp[0]["poc"] if refp else poc,
+                "y_pad": mc_np.pad_picture(np.asarray(rec_y, np.int32),
+                                           PAD_L),
+                "u_pad": mc_np.pad_picture(np.asarray(rec_u, np.int32),
+                                           PAD_L // 2),
+                "v_pad": mc_np.pad_picture(np.asarray(rec_v, np.int32),
+                                           PAD_L // 2),
+                "map_mv": map_mv,
+            }
+            return {"payload": payload, "bin_count": bin_count,
+                    "rec": (rec_y, rec_u, rec_v), "entry": entry,
+                    "tile_lens": tile_lens, "y": y,
+                    "l0p": l0p, "l1p": l1p}
 
     def _shadow_dpb(self):
         """Lightweight copy of the DPB metadata for dispatch-ahead ref-list
@@ -1517,13 +1629,15 @@ class GopEncoder(Encoder):
     def _predict_refs(self, shadow, dev, poc, tid, base):
         """Predict (ref0, ref0b, ref1, ref1b) pocs for the dispatch-ahead
         analysis of a RA B frame, from the simulated DPB state — identical
-        list construction to the coding-time build_ref_lists call."""
+        list construction to the coding-time build_ref_lists call — among
+        the newest _ANALYSIS_REF_WINDOW originals fed."""
         l0, l1 = picman_np.build_ref_lists(
             shadow, poc, tid, SLICE_B, SLICE_P, SLICE_B,
             self.sps.max_num_ref_pics, self.last_intra_poc)
-        p0 = [q["poc"] for q in l0 if dev.has_frame(q["poc"])]
-        p1 = [q["poc"] for q in l1 if dev.has_frame(q["poc"])]
-        ref0 = p0[0] if p0 else (base if dev.has_frame(base) else None)
+        recent = set(sorted(dev.host_ring)[-_ANALYSIS_REF_WINDOW:])
+        p0 = [q["poc"] for q in l0 if q["poc"] in recent]
+        p1 = [q["poc"] for q in l1 if q["poc"] in recent]
+        ref0 = p0[0] if p0 else (base if base in recent else None)
         ref0b = p0[1] if len(p0) > 1 else None
         ref1 = p1[0] if p1 else None
         ref1b = p1[1] if len(p1) > 1 else None
