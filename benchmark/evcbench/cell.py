@@ -10,14 +10,21 @@ configuration and traffic mix; the harness reads
   benchmark/limits/<cell>.json         limits of the checks (else
                                        benchmark/limits/default.json)
   benchmark/metrics/<metric>.py        one reader per per-layer metric
+  benchmark/evcbench/engines/<analysis>.py
+                                       the route of the configuration's
+                                       analysis engine (`engine.analysis`):
+                                       its warm-up, the taps that keep its
+                                       analysis records, its worker pools
+                                       and its plain reference
 
-so that a new cell, mix or metric is a new file and a new entry.
+so that a new cell, mix, metric or engine is a new file and a new entry.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import re
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -57,9 +64,27 @@ def load_limits(cell, bench_dir=BENCH_DIR):
 
 def reader(metric, bench_dir=BENCH_DIR):
     """The `read(run)` function of benchmark/metrics/<metric>.py."""
-    path = os.path.join(bench_dir, "metrics", metric + ".py")
-    sp = importlib.util.spec_from_file_location(
-        "evcbench_metric_" + metric.replace(".", "_"), path)
+    return _module(os.path.join(bench_dir, "metrics", metric + ".py"),
+                   "evcbench_metric_" + metric.replace(".", "_")).read
+
+
+def _module(path, name):
+    sp = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(sp)
     sp.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def engine(analysis, bench_dir=BENCH_DIR):
+    """The module benchmark/evcbench/engines/<analysis>.py.  Raises
+    LookupError where the benchmark has none."""
+    path = os.path.join(bench_dir, "evcbench", "engines", f"{analysis}.py")
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.-]*", str(analysis)) \
+            or not os.path.isfile(path):
+        raise LookupError(f"no engine module for analysis engine "
+                          f"{analysis!r} (looked for {path})")
+    mod = _module(path, "evcbench_engine_" + analysis.replace(".", "_"))
+    if mod.REFERENCES not in ("source", "decoded"):
+        raise ValueError(f"engine {analysis!r}: REFERENCES is "
+                         f"{mod.REFERENCES!r}, not 'source' or 'decoded'")
+    return mod

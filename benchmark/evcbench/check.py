@@ -1,33 +1,49 @@
 """What decides `correct`: the timed path's outputs against the plain
-reference under evcbench/reference/, which imports nothing of the
-program.
+reference under evcbench/reference/ and the engine modules' plain
+references, which import nothing of the program.
 
 Six numbers, each against its limit (benchmark/limits/):
 
 - order_errors: emitted frames whose display index is not the one the
   traffic's coding order puts there.
-- dispatch_errors: analyses the program dispatched with another qp, or
-  other reference frames, than the coding structure that the traffic
-  file states gives (`Structure`).
+- dispatch_errors: analysis records of the stream (`record`) whose qp,
+  chroma qps or reference frames differ from what the coding structure
+  that the traffic file states gives (`Structure`).
 - decode_errors: frames of the decoded sample that the frozen decoder
   refuses, or that decode to anything but the encoder's reconstruction
   (the syntax and entropy coding, and the reconstruction).
 - far_frames: frames of the quality set whose reconstruction lies below
   `psnr_floor_db` of luma PSNR from its own source frame (a frame coded
   from the wrong picture decodes to its reconstruction all the same).
-- mv_off, decisions_off: the fused analyzer's decisions on a sample of the
-  window's frames against the reference analysis in float64, worked out
-  again from the benchmark's own source frames: the count of MV entries
-  that differ, and the share of intra-mode and split entries that differ.
+- mv_off, decisions_off: the engine's decisions on a sample of the
+  window's analysis records against the engine's plain reference
+  analysis, worked out again from the benchmark's own source frames (and,
+  for an engine that analyses against reconstructions, the frozen
+  decoder's pictures of them): the count of MV entries that differ, and
+  the share of intra-mode and split entries that differ.  An empty
+  sample counts as many MV entries off as it should have had frames.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .reference import constants as rc
-from .reference import fused
 from .reference.dec.decoder import BaselineIntraDecoder, DecodeError
 from .timeline import ra_coding_order
+
+REFS = ("l0", "l1", "l0b", "l1b")
+
+
+def record(poc, qp, qps, l0=None, l1=None, l0b=None, l1b=None):
+    """One analysis record, as an engine module's taps keep it for each
+    frame the route analyses: its display index `poc`, the `qp` and the
+    (qp_y, qp_u, qp_v) `qps` it was analysed at, its references as display
+    indices (None where absent; an L1 reference that is the L0 picture is
+    no second list: None), and its `result`, None until the program has
+    it."""
+    return {"poc": poc, "qp": qp, "qps": tuple(qps), "l0": l0,
+            "l1": None if l1 == l0 else l1, "l0b": l0b, "l1b": l1b,
+            "result": None}
 
 
 def pad_frame(y, u, v, w, h):
@@ -72,8 +88,8 @@ class Structure:
                     depth; {"model": "rc"}: the qp is the rate control's,
                     so only its chroma pair and the references are checked
 
-    The analyses take source frames as references (the port's default;
-    closed-loop LD analyses against reconstructions and is not covered).
+    It says which frames an analysis references; the engine module says
+    whether it takes their sources or their reconstructions (REFERENCES).
     """
 
     def __init__(self, spec):
@@ -110,21 +126,23 @@ class Structure:
             low.bit_length()
 
     def frame(self, poc):
-        """(intra, temporal id, l0, l1, l0b) of display index poc; a
-        reference that the frame does not have is None."""
+        """(intra, temporal id, refs) of display index poc: refs maps each
+        of REFS to the display index of that reference, None where the
+        frame has none (l1b always: no structure here has one)."""
+        none = dict.fromkeys(REFS)
         if poc == 0 or (self.intra_period > 0
                         and poc % self.intra_period == 0):
-            return True, 0, None, None, None
+            return True, 0, none
         if self.order == "ld":
             last_i = (poc // self.intra_period) * self.intra_period \
                 if self.intra_period > 0 else 0
             l0b = poc - 2 if self.refs > 1 and poc - 2 >= last_i else None
-            return False, 0, poc - 1, None, l0b
+            return False, 0, dict(none, l0=poc - 1, l0b=l0b)
         tid = self._tid(poc)
         if tid == 0:
-            return False, 0, poc - self.gop, None, None
+            return False, 0, dict(none, l0=poc - self.gop)
         low = poc & -poc
-        return False, tid, poc - low, poc + low, None
+        return False, tid, dict(none, l0=poc - low, l1=poc + low)
 
     def slice_qp(self, qp, poc):
         """The qp of display index poc, or None under rate control."""
@@ -148,31 +166,32 @@ def expected_order(n, structure):
 
 
 def dispatch_errors(records, qp, bd, iqt, structure):
-    """Count the recorded dispatches (args, kwargs) whose qp, chroma qps or
-    reference frames differ from the structure's."""
+    """Count the analysis records whose qp, chroma qps or reference frames
+    differ from the structure's."""
     bad = 0
-    for a, k in records:
-        poc, got = a[0], tuple(a[1:5])
-        q = structure.slice_qp(qp, poc)
-        q = got[0] if q is None else q
-        _i, _t, l0, l1, l0b = structure.frame(poc)
-        r0, r1 = k.get("ref_poc"), k.get("ref1_poc")
-        if r1 == r0:
-            r1 = None
-        if (got != (q, *qp_triplet(q, bd, iqt)) or (r0, r1) != (l0, l1)
-                or k.get("ref0b_poc") != l0b
-                or k.get("ref1b_poc") is not None):
+    for r in records:
+        q = structure.slice_qp(qp, r["poc"])
+        q = r["qp"] if q is None else q
+        if ((r["qp"], *r["qps"]) != (q, *qp_triplet(q, bd, iqt))
+                or {k: r[k] for k in REFS} != structure.frame(r["poc"])[2]):
             bad += 1
     return bad
 
 
-def decode_errors(streams, recons):
-    """Decode the concatenated streams with the frozen decoder; count the
-    frames that do not decode, in decoding order, to their reconstruction
-    (all of them when the stream is refused)."""
+def decode(streams):
+    """The frozen decoder's frames of the concatenated streams, in decoding
+    order, or None where it refuses them."""
     try:
-        frames = BaselineIntraDecoder().decode(b"".join(streams))
+        return BaselineIntraDecoder().decode(b"".join(streams))
     except DecodeError:
+        return None
+
+
+def decode_errors(frames, recons):
+    """Count the reconstructions that `frames` (decode's, None for a
+    refused stream) do not give, in decoding order (all of them when the
+    stream was refused)."""
+    if frames is None:
         return len(recons)
     bad = abs(len(frames) - len(recons))
     for f, rec in zip(frames, recons):
@@ -202,23 +221,27 @@ def decisions(ref: dict, prog) -> tuple:
     return mv_bad, ms_bad, ms_n
 
 
-def analyzer_readings(samples, src, qp, bd, iqt, structure, device):
-    """mv_off and decisions_off over the sampled analyses.
+def analyzer_readings(samples, src, picture, qp, bd, iqt, structure,
+                      reference, *, want, device, params):
+    """mv_off and decisions_off over the sampled analysis records.
 
-    samples: [(display index, the qp the program dispatched it at, the
-    program's analysis result)]; src(i) gives the padded source (y, u, v)
-    of display index i.  The reference analyses at the structure's qp,
-    and at the dispatched one under rate control."""
-    import torch
+    src(i) gives the padded source (y, u, v) of display index i, picture(i)
+    the picture the engine takes as reference i (the source, or the frozen
+    decoder's picture), reference the engine module's plain reference.
+    The reference analyses at the structure's qp (the record's under rate
+    control) against the structure's references.  An empty sample, where
+    the traffic asks for `want` frames, reads `want` MV entries off."""
+    if not samples:
+        return want, 0.0
     mv_bad, ms_bad, ms_n = 0, 0, 0
-    for poc, q_prog, prog in samples:
+    for r in samples:
+        poc = r["poc"]
         q = structure.slice_qp(qp, poc)
-        q = q_prog if q is None else q
-        _i, _t, l0, l1, l0b = structure.frame(poc)
-        refs = {k: src(i) for k, i in (("l0", l0), ("l1", l1), ("l0b", l0b))
+        q = r["qp"] if q is None else q
+        refs = {k: picture(i) for k, i in structure.frame(poc)[2].items()
                 if i is not None}
-        ref = fused.analyze(src(poc), refs, q, *qp_triplet(q, bd, iqt),
-                            bd=bd, dtype=torch.float64, device=device)
-        a, b, n = decisions(ref, prog)
+        ref = reference(src(poc), refs, q, qp_triplet(q, bd, iqt), bd=bd,
+                        device=device, params=params)
+        a, b, n = decisions(ref, r["result"])
         mv_bad, ms_bad, ms_n = mv_bad + a, ms_bad + b, ms_n + n
     return mv_bad, ms_bad / max(ms_n, 1)

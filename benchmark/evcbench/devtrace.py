@@ -67,22 +67,27 @@ class DeviceTrace:
 
 
 def summarize(intervals, t0, t1, host_spans, top=10):
-    """busy seconds, the device ops that took most time, and the longest
-    idle gaps labelled by the host spans open at their middle.
+    """busy seconds, every device op's seconds and launches, the ops that
+    took most time, and the longest idle gaps labelled by the host spans
+    open at their middle.
 
     intervals: [(start, end, name)] of device operations; host_spans:
-    {label: [(start, end)]}.  Returns None when no device operation ran
-    inside [t0, t1]."""
+    {label: [(start, end)]}.  `ops` maps each op's full name to [seconds
+    inside [t0, t1], launches with a part inside]; `device_ops` lists the
+    `top` with most seconds, names cut to NAME_CHARS.  Returns None when
+    no device operation ran inside [t0, t1]."""
     iv = timeline.clip([(a, b) for a, b, _ in intervals], t0, t1)
     if not iv:
         return None
     busy = timeline.union(iv)
-    by_name = {}
+    ops = {}
     for a, b, name in intervals:
         a, b = max(a, t0), min(b, t1)
         if b > a:
-            by_name[name] = by_name.get(name, 0.0) + (b - a)
-    ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+            op = ops.setdefault(name, [0.0, 0])
+            op[0] += b - a
+            op[1] += 1
+    most = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
     gaps = sorted(timeline.gaps(iv, t0, t1), key=lambda g: g[0] - g[1])
     labelled = []
     for a, b in gaps[:top]:
@@ -90,6 +95,6 @@ def summarize(intervals, t0, t1, host_spans, top=10):
         open_ = [lbl for lbl, sp in sorted(host_spans.items())
                  if any(x <= mid <= y for x, y in sp)]
         labelled.append(["+".join(open_) or "none", b - a])
-    return {"busy_s": busy, "window_s": t1 - t0,
-            "device_ops": [[n[:NAME_CHARS], s] for n, s in ops],
+    return {"busy_s": busy, "window_s": t1 - t0, "ops": ops,
+            "device_ops": [[n[:NAME_CHARS], s] for n, (s, _k) in most],
             "idle_gaps": labelled}

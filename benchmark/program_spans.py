@@ -25,29 +25,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 
-class Edges:
-    """What drive._stream starts at the window's opening and stops after
-    its end: the device trace, where there is one, and a reading of the
-    analyzer's recovered failures at each edge."""
-
-    def __init__(self, dev, device_trace=None):
-        self.dev, self.device_trace = dev, device_trace
-        self.failures = []
-        self.running = False
-
-    def start(self):
-        self.failures.append(self.dev.failures)
-        if self.device_trace is not None:
-            self.device_trace.start()
-        self.running = True
-
-    def stop(self):
-        if self.device_trace is not None:
-            self.device_trace.stop()
-        self.failures.append(self.dev.failures)
-        self.running = False
-
-
 def run(cell, cfg, traffic, *, seed, seconds, device, t_proc0):
     """One cell's set-up and window with the recorder on; returns the
     result line as a dict."""
@@ -61,23 +38,23 @@ def run(cell, cfg, traffic, *, seed, seconds, device, t_proc0):
     structure = check.Structure(traffic["structure"])
     unit = int(traffic["unit"])
     w, h = cfg["params"]["w"], cfg["params"]["h"]
+    engine = cells.engine(cfg["engine"]["analysis"])
     trace.start()
     try:
         clip = content.make_clip(traffic["content"], w, h, seed, dev_t)
-        enc = drive._encoder(cfg, structure, traffic, device)
+        enc = drive._encoder(cfg, structure, traffic, device, engine)
         device_trace = None
         if cuda:
             devtrace.DeviceTrace.warm(dev_t)
             device_trace = devtrace.DeviceTrace()
             torch.cuda.synchronize(dev_t)
-        edges = Edges(enc._device(), device_trace)
-        emits, _kept, spans, _c, _d, _u = drive._stream(
-            enc, clip, unit=unit, n_keep=1, seconds=seconds, tracer=edges)
+        emits, _kept, spans, _r, marks = drive._stream(
+            enc, engine, clip, unit=unit, n_keep=1, seconds=seconds,
+            tracer=device_trace)
     finally:
         records = trace.stop()
     t0, t1, n = timeline.window([t for t, _b, _d in emits], unit, seconds)
-    recoveries = (edges.failures[1] - edges.failures[0]
-                  if len(edges.failures) == 2 else None)
+    recoveries = drive.gained(marks, n)["DeviceAnalyzer.failures"]
     line = {"workload": cell, "seed": seed, "device": str(dev_t),
             "window_s": t1 - t0, "frames": n,
             "setup_s": emits[0][0] - t_proc0,
@@ -91,12 +68,9 @@ def run(cell, cfg, traffic, *, seed, seconds, device, t_proc0):
     summary = None
     if device_trace is not None:
         iv = device_trace.device_intervals()
-        summary = devtrace.summarize(iv, device_trace.t_mark, t1,
-                                     {k: spans[k] for k in ("cpass",
-                                                            "collect")})
-        line["idle_gaps"] = program.label_gaps(
-            iv, device_trace.t_mark, t1,
-            {k: spans[k] for k in ("cpass", "collect")}, records)
+        summary = devtrace.summarize(iv, device_trace.t_mark, t1, spans)
+        line["idle_gaps"] = program.label_gaps(iv, device_trace.t_mark, t1,
+                                               spans, records)
         line["device_name"] = torch.cuda.get_device_name(dev_t)
     bench_run = {"window": (t0, t1, n), "spans": spans, "device": summary}
     line["benchmark"] = {}

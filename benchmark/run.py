@@ -10,8 +10,9 @@ of standard output, one JSON object: `correct`, `attempted`, `failed`,
 metrics with --trace 1), `device`, with --trace 1 `breakdown`, and last
 `checks`, each number that decided `correct` beside its limit.  The same
 numbers are the last lines of standard error.  It exits non-zero and
-prints no result without a card, when the port is missing, or when jax,
-jaxlib, flax or the JAX package were loaded.
+prints no result when the cell's analysis engine has no module under
+benchmark/evcbench/engines/, without a card, when the port is missing,
+or when jax, jaxlib, flax or the JAX package were loaded.
 """
 import time
 
@@ -58,6 +59,11 @@ def main(argv=None):
     from evcbench.drive import run_cell
 
     cell, cfg, traffic, e2e, per_layer = cells.load_cell(args.workload)
+    try:
+        cells.engine(cfg["engine"]["analysis"])
+    except LookupError as e:
+        print(f"run.py: {e}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < int(cell["chips"]):
         print(f"run.py: the cell asks for {cell['chips']} CUDA device(s); "

@@ -150,8 +150,14 @@ def test_device_summary_labels_gaps_with_open_host_spans():
 
 
 def _fake_out(with_device):
+    task = {"name": "frame.task", "thread": "xt-frame_0", "cpu": 0.0,
+            "parent": None, "attrs": {"poc": 1}}
+    program = [dict(task, id=0, t0=0.5, t1=1.5),
+               dict(task, id=1, t0=0.5, t1=2.5, thread="xt-frame_1"),
+               dict(task, id=2, t0=0.2, t1=0.3, thread="xt-dispatch_0",
+                    name="device_analyzer.dispatch")]
     run = {"window": (0.0, 2.0, 4), "setup_s": 12.5, "fps": 2.0,
-           "kbps": 900.0, "psnr_y": 38.0,
+           "kbps": 900.0, "psnr_y": 38.0, "program": program,
            "spans": {"cpass": [(0.1, 1.9)], "collect": [(0.0, 0.1)]},
            "device": ({"busy_s": 0.5, "window_s": 2.0,
                        "device_ops": [["k", 0.5]],
@@ -183,6 +189,12 @@ def test_result_line_schema(trace):
         assert line["metrics"]["device.idle_share"]["value"] == 0.75
         assert line["metrics"]["native.cpass_busy_share"]["value"] == \
             pytest.approx(0.9)
+        # two tasks of 1 s and 1.5 s inside the 2 s window; one dispatch
+        assert line["metrics"]["frame_worker.running_mean"]["value"] == \
+            pytest.approx(1.25)
+        assert line["metrics"][
+            "device_analyzer.enqueue_ms_per_dispatch"]["value"] == \
+            pytest.approx(100.0)
 
 
 def test_a_reader_that_finds_nothing_leaves_its_metric_out():

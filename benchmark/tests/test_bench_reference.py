@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from evcbench import cell as cells
 from evcbench import check, content
 from evcbench.reference import fused
 
@@ -84,11 +85,12 @@ def test_the_frozen_decoder_decodes_the_ports_streams(profile):
     assert len(out) == 18
     streams = [bs for bs, _r, _p in out]
     recons = [r for _b, r, _p in out]
-    assert check.decode_errors(streams, recons) == 0
+    frames = check.decode(streams)
+    assert check.decode_errors(frames, recons) == 0
     recons[5] = (recons[5][0] + 1, *recons[5][1:])
-    assert check.decode_errors(streams, recons) == 1
-    assert check.decode_errors(streams[:3] + [streams[3][:-9]],
-                               recons[:4]) == 4
+    assert check.decode_errors(frames, recons) == 1
+    assert check.decode(streams[:3] + [streams[3][:-9]]) is None
+    assert check.decode_errors(None, recons[:4]) == 4
 
 
 def _structure(mix):
@@ -100,17 +102,19 @@ def _structure(mix):
 
 
 def _recorded(enc, n, seed=5):
+    """The analysis records that the device engine's taps keep over a
+    stream of n frames, and the display order of its emissions."""
     y, u, v = _frames(n, seed)
-    dev = enc._device()
-    recs = []
-    real = dev.dispatch
-
-    def rec(*a, **k):
-        recs.append((a, k))
-        return real(*a, **k)
-
-    dev.dispatch = rec
-    out = list(enc.encode_stream(zip(y, u, v)))
+    taps = [x for v in cells.engine("device").taps(enc).values() for x in v]
+    for x in taps:
+        x.__enter__()
+    try:
+        out = list(enc.encode_stream(zip(y, u, v)))
+    finally:
+        for x in taps:
+            x.__exit__()
+    recs = [r for x in taps for r in x.kept if r is not None]
+    assert all(r["result"] is not None for r in recs)
     return recs, [p for _b, _r, p in out]
 
 
