@@ -1,8 +1,10 @@
 """Build + load the native library (gcc -O3 shared object via ctypes).
 
-The port's copy of xeve_tpu/native/build.py.  xt_core.c and tables.h are
-byte-identical to the JAX package's; tables.h is committed and never
-regenerated here.  The library is built at first use into
+The port's copy of xeve_tpu/native/build.py.  tables.h is byte-identical
+to the JAX package's, committed and never regenerated here; xt_core.c
+differs from the JAX package's only in its DCT-2 transform core (pruned
+partial butterflies, equal in every output) and the counters of that
+core's inverse transforms.  The library is built at first use into
 build/xeve_tpu_torch/ at the root of the checkout, under a name of its
 own (libxevetpu_torch.so), so that it and the JAX package's library can
 be loaded side by side in one process: ctypes loads each RTLD_LOCAL and
@@ -16,7 +18,12 @@ entry point (xt_encode_frame, xt_encode_intra_frame,
 xt_encode_main_intra_frame) a `native.ccall` span around the foreign
 call alone, in which the calling thread has released the GIL.  Its
 `poc` is the inter pass's poc argument, or for an intra pass the `poc`
-of the span the caller has open (a frame worker's `frame.task`).
+of the span the caller has open (a frame worker's `frame.task`).  It
+also carries the call's inverse transforms, read from the calling
+thread's counters (xt_tq_counters) before and after it: `inv_n`, how
+many ran, `inv_area`, the sum of the nonzero coefficient rectangles they
+transformed, and `inv_full`, the sum of their blocks' areas.  While the
+recorder is off the counters are not read.
 """
 from __future__ import annotations
 
@@ -108,15 +115,26 @@ def get_lib():
     return _lib
 
 
-def _ccall(fn, poc_arg=None):
-    """fn (a bound entry point) inside a native.ccall span."""
+def _ccall(fn, counters, poc_arg=None):
+    """fn (a bound entry point) inside a native.ccall span, which gains
+    the call's inverse-transform counts from `counters` (xt_tq_counters)
+    while the recorder is on."""
     def call(*args):
         if poc_arg is None:
             poc = trace.attr("poc")
         else:       # a ctypes c_int32, or a plain int
             poc = getattr(args[poc_arg], "value", args[poc_arg])
-        with trace.span("native.ccall", poc=poc):
-            return fn(*args)
+        with trace.span("native.ccall", poc=poc) as sp:
+            if sp is trace.OFF:
+                return fn(*args)
+            c0, c1 = (ctypes.c_int64 * 3)(), (ctypes.c_int64 * 3)()
+            counters(c0)
+            try:
+                return fn(*args)
+            finally:
+                counters(c1)
+                sp.set(inv_n=c1[0] - c0[0], inv_area=c1[1] - c0[1],
+                       inv_full=c1[2] - c0[2])
     return call
 
 
@@ -157,7 +175,11 @@ def _bind(lib):
         i32p, ctypes.POINTER(ctypes.c_int8),
         ctypes.POINTER(XtStats),
     ]
-    lib.xt_encode_frame = _ccall(lib.xt_encode_frame, poc_arg=2)
-    lib.xt_encode_intra_frame = _ccall(lib.xt_encode_intra_frame)
-    lib.xt_encode_main_intra_frame = _ccall(lib.xt_encode_main_intra_frame)
+    lib.xt_tq_counters.restype = None
+    lib.xt_tq_counters.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    cnt = lib.xt_tq_counters
+    lib.xt_encode_frame = _ccall(lib.xt_encode_frame, cnt, poc_arg=2)
+    lib.xt_encode_intra_frame = _ccall(lib.xt_encode_intra_frame, cnt)
+    lib.xt_encode_main_intra_frame = _ccall(lib.xt_encode_main_intra_frame,
+                                            cnt)
     return lib

@@ -233,108 +233,247 @@ static void xt_sbac_finish(XtSbac *s)
 /* Transforms (exact integer; xeve_tq.c / xeve_itdq.c semantics)       */
 /* ------------------------------------------------------------------ */
 
-/* 1-D forward DCT-2 over `line` vectors of length n laid out with stride
- * `line`: uses the even/odd symmetry of the DCT matrix (tm[u][k] ==
- * +-tm[u][n-1-k]) to halve the multiply count; integer-exact. */
-static void xt_fwd_1d_s32(const int32_t *src, int32_t *dst, int n, int line,
-                          const int8_t *T)
+/* DCT-2 partial butterflies (xeve_tx_pb* / xeve_itx_pb*).  The n-point
+ * matrix T = XT_TM[lg] (int8, |T| <= 90) has, for a row u = 2^l q and a
+ * column x < m = n >> l, T[u][m-1-x] = (-1)^q T[u][x].  So a 1-D
+ * transform splits at each level l into the rows 2^l (odd), whose terms
+ * need only the columns x < m/2, and a transform of half the size over
+ * the rows that are multiples of 2^(l+1).  The levels only regroup the
+ * integer terms of the plain matrix product, so each sum is equal to
+ * it wherever the accumulator holds every partial sum.  Each partial
+ * sum of one line is a sum of distinct terms T * input, so it never
+ * exceeds 90 times the sum of the line's |inputs|: the transforms sum
+ * in int32 where xt_lines_fit32 proves that bound under 2^30 (so that
+ * a rounding offset of up to 2^20 still fits) for every line, and in
+ * int64 otherwise.
+ *
+ * The 1-D transforms run on L lines at once, a line's samples L apart,
+ * so that every inner loop runs over the lines at unit stride. */
+static inline uint32_t xt_abs32(int32_t v)
 {
-    int32_t E[32], O[32];
-    for (int j = 0; j < line; j++) {
-        const int32_t *r = src + j * n;
-        for (int k = 0; k < n / 2; k++) {
-            E[k] = r[k] + r[n - 1 - k];
-            O[k] = r[k] - r[n - 1 - k];
-        }
-        for (int u = 0; u < n; u += 2) {
-            const int8_t *t = T + u * n;
-            int64_t acc = 0;
-            for (int k = 0; k < n / 2; k++) acc += (int64_t)t[k] * E[k];
-            dst[u * line + j] = (int32_t)acc;
-        }
-        for (int u = 1; u < n; u += 2) {
-            const int8_t *t = T + u * n;
-            int64_t acc = 0;
-            for (int k = 0; k < n / 2; k++) acc += (int64_t)t[k] * O[k];
-            dst[u * line + j] = (int32_t)acc;
-        }
-    }
+    return v < 0 ? 0u - (uint32_t)v : (uint32_t)v;
 }
 
+/* Whether int32 holds the sums of the L lines of a[k * sa + j], k < K. */
+static int xt_lines_fit32(const int32_t *a, int sa, int K, int L)
+{
+    uint64_t l1[64] = {0}, mx = 0;
+    for (int k = 0; k < K; k++)
+        for (int j = 0; j < L; j++) l1[j] += xt_abs32(a[k * sa + j]);
+    for (int j = 0; j < L; j++) mx = l1[j] > mx ? l1[j] : mx;
+    return mx <= (1u << 30) / 90;
+}
+
+/* Inverse: x[k][j] = sum over u < K of a[u * sa + j] T[u][k], for the
+ * lines j < L (the rows from K on are zero). */
+#define XT_ITX_LANES(NAME, ACC)                                             \
+static void NAME(const int32_t *a, int sa, int K, const int8_t *T, int lg, \
+                 ACC *x, int L)                                             \
+{                                                                           \
+    int n = 1 << lg;                                                        \
+    ACC o[32 * 64];                                                         \
+    for (int j = 0; j < L; j++) x[j] = (ACC)a[j] * T[0];                    \
+    for (int l = lg - 1; l >= 0; l--) {                                     \
+        int half = n >> (l + 1), m = 2 * half;                              \
+        for (int i = 0; i < half * L; i++) o[i] = 0;                        \
+        for (int u = 1 << l; u < K; u += 2 << l) {                          \
+            const int32_t *au = a + u * sa;                                 \
+            for (int c = 0; c < half; c++) {                                \
+                ACC t = T[u * n + c], *oc = o + c * L;                      \
+                for (int j = 0; j < L; j++) oc[j] += t * au[j];             \
+            }                                                               \
+        }                                                                   \
+        for (int c = 0; c < half; c++) {                                    \
+            ACC *xc = x + c * L, *xm = x + (m - 1 - c) * L, *oc = o + c * L;\
+            for (int j = 0; j < L; j++) {                                   \
+                ACC e = xc[j];                                              \
+                xc[j] = e + oc[j];                                          \
+                xm[j] = e - oc[j];                                          \
+            }                                                               \
+        }                                                                   \
+    }                                                                       \
+}
+XT_ITX_LANES(xt_itx32, int32_t)
+XT_ITX_LANES(xt_itx64, int64_t)
+
+/* Forward: X[u][j] = sum over x < n of T[u][x] e[x][j], for the lines
+ * j < L; e is folded in place. */
+#define XT_FTX_LANES(NAME, ACC)                                             \
+static void NAME(ACC *e, const int8_t *T, int lg, ACC *X, int L)           \
+{                                                                           \
+    int n = 1 << lg;                                                        \
+    ACC o[32 * 64];                                                         \
+    for (int l = 0; l < lg; l++) {                                          \
+        int half = n >> (l + 1), m = 2 * half;                              \
+        for (int x = 0; x < half; x++) {                                    \
+            ACC *ex = e + x * L, *em = e + (m - 1 - x) * L, *ox = o + x * L;\
+            for (int j = 0; j < L; j++) {                                   \
+                ACC p = ex[j], q = em[j];                                   \
+                ex[j] = p + q;                                              \
+                ox[j] = p - q;                                              \
+            }                                                               \
+        }                                                                   \
+        for (int u = 1 << l; u < n; u += 2 << l) {                          \
+            const int8_t *t = T + u * n;                                    \
+            ACC *xu = X + u * L;                                            \
+            for (int j = 0; j < L; j++) xu[j] = 0;                          \
+            for (int x = 0; x < half; x++) {                                \
+                ACC tx = t[x];                                              \
+                const ACC *ox = o + x * L;                                  \
+                for (int j = 0; j < L; j++) xu[j] += tx * ox[j];            \
+            }                                                               \
+        }                                                                   \
+    }                                                                       \
+    for (int j = 0; j < L; j++) X[j] = T[0] * e[j];                         \
+}
+XT_FTX_LANES(xt_ftx32, int32_t)
+XT_FTX_LANES(xt_ftx64, int64_t)
+
+/* Forward DCT-2, rows then columns, one combined rounding shift.  Stage
+ * 1 keeps each sum modulo 2^32, as the int32 store of the int64 sum
+ * always did: where int32 cannot hold the sums, they are made in int64
+ * and stored the same way. */
 static void xt_fwd_dct2(const int32_t *resi, int32_t *coef, int lg, int bd)
 {
     int n = 1 << lg;
     const int8_t *T = XT_TM[lg];
     int shift = (lg - 1 + bd - 8) + (lg + 6);
     int64_t add = 1ll << (shift - 1);
-    int32_t tmp[64 * 64]; /* tmp[u][j] */
-    xt_fwd_1d_s32(resi, tmp, n, n, T);
-    /* second stage with combined shift; same even/odd trick on columns of
-     * tmp (each row of tmp is one frequency u over spatial rows j) */
-    int64_t E[32], O[32];
-    for (int u = 0; u < n; u++) {
-        const int32_t *m = tmp + u * n;
-        for (int j = 0; j < n / 2; j++) {
-            E[j] = (int64_t)m[j] + m[n - 1 - j];
-            O[j] = (int64_t)m[j] - m[n - 1 - j];
+    static __thread int32_t e32[64 * 64], X32[64 * 64];
+    static __thread int64_t e64[64 * 64], X64[64 * 64];
+    /* stage 1 on the rows j: e[x][j] */
+    for (int j = 0; j < n; j++)
+        for (int x = 0; x < n; x++) e32[x * n + j] = resi[j * n + x];
+    if (xt_lines_fit32(e32, n, n, n)) {
+        xt_ftx32(e32, T, lg, X32, n);
+    } else {
+        for (int i = 0; i < n * n; i++) e64[i] = e32[i];
+        xt_ftx64(e64, T, lg, X64, n);
+        for (int i = 0; i < n * n; i++) X32[i] = (int32_t)X64[i];
+    }
+    /* stage 2 on the columns u: X[u][j] -> e[j][u] */
+    for (int u = 0; u < n; u++)
+        for (int j = 0; j < n; j++) e32[j * n + u] = X32[u * n + j];
+    if (xt_lines_fit32(e32, n, n, n)) {
+        xt_ftx32(e32, T, lg, X32, n);
+        for (int i = 0; i < n * n; i++)
+            coef[i] = (X32[i] + (int32_t)add) >> shift;
+    } else {
+        for (int i = 0; i < n * n; i++) e64[i] = e32[i];
+        xt_ftx64(e64, T, lg, X64, n);
+        for (int i = 0; i < n * n; i++)
+            coef[i] = (int32_t)((X64[i] + add) >> shift);
+    }
+}
+
+/* Inverse transforms this thread has run: [0] how many, [1] the sum of
+ * the nonzero rectangles they transformed, (r+1)(c+1), [2] the sum of
+ * the blocks' areas, w*h.  Tile threads add theirs into the calling
+ * thread's at the join (xt_code_tiles). */
+static __thread int64_t xt_tq_cnt[3];
+
+XT_API void xt_tq_counters(int64_t out[3])
+{
+    for (int i = 0; i < 3; i++) out[i] = xt_tq_cnt[i];
+}
+
+static inline int32_t xt_clip16(int64_t v)
+{
+    return (int32_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+/* Inverse DCT-2 of a w x h block, vertical then horizontal, over the
+ * rectangle of rows 0..r and columns 0..c that holds every nonzero
+ * coefficient: each skipped term is a zero product, and a column of
+ * zeros leaves stage 1 as 0 in both roundings.
+ *   iqt = 0 (xeve_itdq.c): stage 1 clamps its sums to +-(2^31 - 1),
+ *     stage 2 rounds by 19 - (bd - 8) and clamps to int16.
+ *   iqt = 1 (xevem_itdq.c:553): each stage rounds (by 7, then by
+ *     12 - (bd - 8)) and clamps to int16.
+ * Ranges: int16 coefficients keep every stage-1 sum under
+ * 32768 * 64 * 90 < 2^28, and IQT's stage 2 reads int16 values, so both
+ * sum in int32 (where the sums fit int32 the +-(2^31 - 1) clamp never
+ * acts).  The plain stage 2 reads stage-1 sums of up to 2^31, whose
+ * sums reach 2^44: int32 only where xt_lines_fit32 proves it. */
+static void xt_inv_dct2_any(const int32_t *coef, int32_t *resi, int lgw,
+                            int lgh, int bd, int iqt)
+{
+    int w = 1 << lgw, h = 1 << lgh;
+    const int8_t *Tw = XT_TM[lgw], *Th = XT_TM[lgh];
+    int32_t col_or[64] = {0};
+    int r = 0, c = 0;
+    for (int v = 0; v < h; v++) {
+        const int32_t *q = coef + v * w;
+        int32_t row_or = 0;
+        for (int u = 0; u < w; u++) {
+            col_or[u] |= q[u];
+            row_or |= q[u];
         }
-        for (int v = 0; v < n; v += 2) {
-            const int8_t *t = T + v * n;
-            int64_t acc = 0;
-            for (int j = 0; j < n / 2; j++) acc += (int64_t)t[j] * E[j];
-            coef[v * n + u] = (int32_t)((acc + add) >> shift);
-        }
-        for (int v = 1; v < n; v += 2) {
-            const int8_t *t = T + v * n;
-            int64_t acc = 0;
-            for (int j = 0; j < n / 2; j++) acc += (int64_t)t[j] * O[j];
-            coef[v * n + u] = (int32_t)((acc + add) >> shift);
-        }
+        if (row_or) r = v;
+    }
+    for (int u = 0; u < w; u++)
+        if (col_or[u]) c = u;
+    xt_tq_cnt[0]++;
+    xt_tq_cnt[1] += (int64_t)(r + 1) * (c + 1);
+    xt_tq_cnt[2] += (int64_t)w * h;
+
+    /* stage 1 on the columns 0..c: X[k][u] -> mid[u][k] */
+    int L = c + 1;
+    static __thread int32_t mid[64 * 64], X32[64 * 64];
+    static __thread int64_t X64[64 * 64];
+    if (xt_lines_fit32(coef, w, r + 1, L)) {
+        xt_itx32(coef, w, r + 1, Th, lgh, X32, L);
+        for (int k = 0; k < h; k++)
+            for (int u = 0; u < L; u++) {
+                int32_t s = X32[k * L + u];
+                mid[u * h + k] = iqt ? xt_clip16((s + 64) >> 7) : s;
+            }
+    } else {
+        xt_itx64(coef, w, r + 1, Th, lgh, X64, L);
+        for (int k = 0; k < h; k++)
+            for (int u = 0; u < L; u++) {
+                int64_t s = X64[k * L + u];
+                mid[u * h + k] = iqt ? xt_clip16((s + 64) >> 7)
+                    : (int32_t)(s > 2147483647ll ? 2147483647ll
+                                : s < -2147483647ll ? -2147483647ll : s);
+            }
+    }
+    /* stage 2 on the rows: X[x][k] -> resi[k][x] */
+    int shift = iqt ? 12 - (bd - 8) : 7 + (12 - (bd - 8));
+    int64_t add = 1ll << (shift - 1);
+    if (xt_lines_fit32(mid, h, L, h)) {
+        xt_itx32(mid, h, L, Tw, lgw, X32, h);
+        for (int k = 0; k < h; k++)
+            for (int x = 0; x < w; x++)
+                resi[k * w + x] = xt_clip16((X32[x * h + k] + (int32_t)add) >> shift);
+    } else {
+        xt_itx64(mid, h, L, Tw, lgw, X64, h);
+        for (int k = 0; k < h; k++)
+            for (int x = 0; x < w; x++)
+                resi[k * w + x] = xt_clip16((X64[x * h + k] + add) >> shift);
     }
 }
 
 static void xt_inv_dct2(const int32_t *coef, int32_t *resi, int lg, int bd)
 {
-    int n = 1 << lg;
-    const int8_t *T = XT_TM[lg];
-    int shift = 7 + (12 - (bd - 8));
-    int64_t add = 1ll << (shift - 1);
-    int32_t tmp[64 * 64]; /* tmp[k][u] */
-    /* stage 1 (columns): dst[k] and dst[n-1-k] share even/odd partials */
-    for (int u = 0; u < n; u++) {
-        for (int k = 0; k < n / 2; k++) {
-            int64_t se = 0, so = 0;
-            for (int v = 0; v < n; v += 2)
-                se += (int64_t)T[v * n + k] * coef[v * n + u];
-            for (int v = 1; v < n; v += 2)
-                so += (int64_t)T[v * n + k] * coef[v * n + u];
-            int64_t a = se + so, b = se - so;
-            if (a > 2147483647ll) a = 2147483647ll;
-            if (a < -2147483647ll) a = -2147483647ll;
-            if (b > 2147483647ll) b = 2147483647ll;
-            if (b < -2147483647ll) b = -2147483647ll;
-            tmp[k * n + u] = (int32_t)a;
-            tmp[(n - 1 - k) * n + u] = (int32_t)b;
-        }
-    }
-    for (int k = 0; k < n; k++) {
-        const int32_t *m = tmp + k * n;
-        for (int c = 0; c < n / 2; c++) {
-            int64_t se = 0, so = 0;
-            for (int u = 0; u < n; u += 2)
-                se += (int64_t)m[u] * T[u * n + c];
-            for (int u = 1; u < n; u += 2)
-                so += (int64_t)m[u] * T[u * n + c];
-            int64_t a = (se + so + add) >> shift;
-            int64_t b = (se - so + add) >> shift;
-            if (a > 32767) a = 32767;
-            if (a < -32768) a = -32768;
-            if (b > 32767) b = 32767;
-            if (b < -32768) b = -32768;
-            resi[k * n + c] = (int32_t)a;
-            resi[k * n + (n - 1 - c)] = (int32_t)b;
-        }
-    }
+    xt_inv_dct2_any(coef, resi, lg, lg, bd, 0);
+}
+
+static void xt_inv_dct2_wh(const int32_t *coef, int32_t *resi, int lgw,
+                           int lgh, int bd)
+{
+    xt_inv_dct2_any(coef, resi, lgw, lgh, bd, 0);
+}
+
+static void xt_inv_dct2_iqt(const int32_t *coef, int32_t *resi, int lg, int bd)
+{
+    xt_inv_dct2_any(coef, resi, lg, lg, bd, 1);
+}
+
+static void xt_inv_dct2_iqt_wh(const int32_t *coef, int32_t *resi, int lgw,
+                               int lgh, int bd)
+{
+    xt_inv_dct2_any(coef, resi, lgw, lgh, bd, 1);
 }
 
 /* ATS (DST-7 / DCT-8) transforms, square TBs 4..32.  ats_mode bit1
@@ -498,72 +637,6 @@ static void xt_fwd_dct2_wh(const int32_t *resi, int32_t *coef, int lgw,
             coef[v * w + u] = (int32_t)((acc + add) >> shift);
         }
     }
-}
-
-static void xt_inv_dct2_wh(const int32_t *coef, int32_t *resi, int lgw,
-                           int lgh, int bd)
-{
-    if (lgw == lgh) { xt_inv_dct2(coef, resi, lgw, bd); return; }
-    int w = 1 << lgw, h = 1 << lgh;
-    const int8_t *Tw = XT_TM[lgw], *Th = XT_TM[lgh];
-    int shift = 7 + (12 - (bd - 8));
-    int64_t add = 1ll << (shift - 1);
-    static __thread int32_t tmp[64 * 64];   /* tmp[k][j]: stage-1 cols */
-    for (int j = 0; j < w; j++)
-        for (int k = 0; k < h; k++) {
-            int64_t acc = 0;
-            for (int v = 0; v < h; v++)
-                acc += (int64_t)Th[v * h + k] * coef[v * w + j];
-            if (acc > 2147483647ll) acc = 2147483647ll;
-            if (acc < -2147483647ll) acc = -2147483647ll;
-            tmp[k * w + j] = (int32_t)acc;
-        }
-    for (int k = 0; k < h; k++)
-        for (int c = 0; c < w; c++) {
-            int64_t acc = 0;
-            const int32_t *m = tmp + k * w;
-            for (int u = 0; u < w; u++)
-                acc += (int64_t)m[u] * Tw[u * w + c];
-            acc = (acc + add) >> shift;
-            if (acc > 32767) acc = 32767;
-            if (acc < -32768) acc = -32768;
-            resi[k * w + c] = (int32_t)acc;
-        }
-}
-
-static void xt_inv_dct2_iqt(const int32_t *coef, int32_t *resi, int lg,
-                            int bd);
-
-/* IQT rect inverse (xevem_itdq.c:553 per-stage rounding, 16-bit clamps) */
-static void xt_inv_dct2_iqt_wh(const int32_t *coef, int32_t *resi, int lgw,
-                               int lgh, int bd)
-{
-    if (lgw == lgh) { xt_inv_dct2_iqt(coef, resi, lgw, bd); return; }
-    int w = 1 << lgw, h = 1 << lgh;
-    const int8_t *Tw = XT_TM[lgw], *Th = XT_TM[lgh];
-    static __thread int32_t b1[64 * 64];        /* b1[j][v]: cols done */
-    for (int j = 0; j < w; j++)
-        for (int v = 0; v < h; v++) {
-            int64_t acc = 0;
-            for (int k = 0; k < h; k++)
-                acc += (int64_t)coef[k * w + j] * Th[k * h + v];
-            acc = (acc + 64) >> 7;
-            if (acc > 32767) acc = 32767;
-            if (acc < -32768) acc = -32768;
-            b1[j * h + v] = (int32_t)acc;
-        }
-    int s2 = 12 - (bd - 8);
-    int64_t add = 1ll << (s2 - 1);
-    for (int v = 0; v < h; v++)
-        for (int u = 0; u < w; u++) {
-            int64_t acc = 0;
-            for (int j = 0; j < w; j++)
-                acc += (int64_t)b1[j * h + v] * Tw[j * w + u];
-            acc = (acc + add) >> s2;
-            if (acc > 32767) acc = 32767;
-            if (acc < -32768) acc = -32768;
-            resi[v * w + u] = (int32_t)acc;
-        }
 }
 
 static int xt_quant_wh(const int32_t *coef, int32_t *lev, int lgw, int lgh,
@@ -1386,7 +1459,6 @@ static void xt_code_cu(XtFrame *f, int x, int y, int lg, int dqp_code)
 static void xt_code_cu_pb(XtFrame *f, int x, int y, int lg, int dqp_code);
 static void xt_code_cu_main(XtFrame *f, int x, int y, int lg, int dqp_code);
 /* Main-profile helpers (defined in the Main section below) */
-static void xt_inv_dct2_iqt(const int32_t *coef, int32_t *resi, int lg, int bd);
 static void xt_nbr_main(const uint16_t *plane, int stride,
                         const uint8_t *map_cod, int w_scu, int h_scu,
                         int x, int y, int nw, int nh, int x_scu, int y_scu,
@@ -3525,37 +3597,6 @@ static void xt_deblock(XtFrame *f)
 /* enc/syntax_main.py (reference: xevem_ipred.c, xevem_eco.c:1018-1654)*/
 /* ================================================================== */
 
-/* IQT inverse DCT-2 (xevem_itdq.c:553): per-stage rounding shifts with
- * 16-bit clamps between stages. */
-static void xt_inv_dct2_iqt(const int32_t *coef, int32_t *resi, int lg, int bd)
-{
-    int n = 1 << lg;
-    const int8_t *T = XT_TM[lg];
-    static __thread int32_t b1[64 * 64];        /* b1[j][v] */
-    for (int j = 0; j < n; j++)
-        for (int v = 0; v < n; v++) {
-            int64_t acc = 0;
-            for (int k = 0; k < n; k++)
-                acc += (int64_t)coef[k * n + j] * T[k * n + v];
-            acc = (acc + 64) >> 7;
-            if (acc > 32767) acc = 32767;
-            if (acc < -32768) acc = -32768;
-            b1[j * n + v] = (int32_t)acc;
-        }
-    int s2 = 12 - (bd - 8);
-    int64_t add = 1ll << (s2 - 1);
-    for (int v = 0; v < n; v++)
-        for (int u = 0; u < n; u++) {
-            int64_t acc = 0;
-            for (int j = 0; j < n; j++)
-                acc += (int64_t)b1[j * n + v] * T[j * n + u];
-            acc = (acc + add) >> s2;
-            if (acc > 32767) acc = 32767;
-            if (acc < -32768) acc = -32768;
-            resi[v * n + u] = (int32_t)acc;
-        }
-}
-
 /* neighbour gather, xevem_get_nbr semantics (replicate fill; up[0] is
  * index -1, arrays 2n+1 long) */
 static void xt_nbr_main(const uint16_t *plane, int stride,
@@ -5319,6 +5360,7 @@ typedef struct {
     int x0, x1, y0, y1;         /* LCU rect */
     uint8_t *buf;
     int64_t cap, out_len, bins;
+    int64_t tq_cnt[3];          /* the worker thread's xt_tq_cnt at its end */
     int rc;
 } XtTileJob;
 
@@ -5349,6 +5391,7 @@ static void *xt_tile_worker(void *arg)
     job->out_len = sbac.out_len;
     job->bins = sbac.bin_counter;
     job->rc = (sbac.out_len <= job->cap) ? 0 : -1;
+    memcpy(job->tq_cnt, xt_tq_cnt, sizeof xt_tq_cnt);
     return NULL;
 }
 
@@ -5420,8 +5463,10 @@ static int xt_code_tiles(XtFrame *f, uint8_t *out_bs, int64_t out_cap,
         pthread_t *th = malloc(sizeof(pthread_t) * n_tiles);
         for (t = 0; t < n_tiles; t++)
             pthread_create(&th[t], NULL, xt_tile_worker, &jobs[t]);
-        for (t = 0; t < n_tiles; t++)
+        for (t = 0; t < n_tiles; t++) {
             pthread_join(th[t], NULL);
+            for (int i = 0; i < 3; i++) xt_tq_cnt[i] += jobs[t].tq_cnt[i];
+        }
         free(th);
     } else {
         for (t = 0; t < n_tiles; t++)
